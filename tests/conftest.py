@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def corpus_dir(tmp_path_factory):
     """Small synthetic hub corpus shared across tests."""
