@@ -45,7 +45,6 @@ import torch
 
 from repro_torch.core import zstd_compat as zstd
 from repro_torch.core.codecs import CodecRuntime, EncodeInput, get_codec, raw_or_stored
-from repro_torch.kernels import _build
 from repro_torch.kernels.bitx_xor import merge_xor, xor_split
 from repro_torch.kernels.byte_planes import merge, split
 
@@ -240,9 +239,12 @@ class TorchBackend:
         self._lock = threading.Lock()
         self._counts = self._zero_counts()
 
-    @staticmethod
-    def _zero_counts() -> Dict:
-        return {"kernel_calls": {k: 0 for k in _build.KERNELS},
+    # the kernels the four plane ops run (the bit-distance kernels are not theirs)
+    KERNELS = ("xor_split", "merge_xor", "split", "merge")
+
+    @classmethod
+    def _zero_counts(cls) -> Dict:
+        return {"kernel_calls": {k: 0 for k in cls.KERNELS},
                 "h2d_bytes": 0, "d2h_bytes": 0, "kernel_ms": 0.0, "copy_ms": 0.0}
 
     def counters(self) -> Dict:

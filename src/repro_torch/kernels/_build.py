@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["BUILD_DIR", "KERNELS", "SOURCES", "NVCC_FLAGS", "library", "build_seconds",
-           "check_bytes", "launch", "launch_counts", "reset_launch_counts"]
+           "check_bytes", "check_pair", "grid", "launch", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "planes.cu",)
@@ -36,21 +36,23 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
-# C signatures of the launchers in csrc/planes.cu: pointers, then the word
-# count n (int64), the word width nb (int) and the stream; each returns a
-# cudaError_t as int
+# C signatures of the launchers in csrc/planes.cu: pointers (inputs, then
+# outputs), then the word count n (int64), the word width nb (int) and the
+# stream; each returns a cudaError_t as int
 _P, _N, _NB = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "xor_split": (_P, _P, _P, _N, _NB, _P),
     "merge_xor": (_P, _P, _P, _N, _NB, _P),
     "split": (_P, _P, _N, _NB, _P),
     "merge": (_P, _P, _N, _NB, _P),
+    "xor": (_P, _P, _P, _N, _NB, _P),
+    "hamming": (_P, _P, _P, _N, _NB, _P),  # out: grid(n) 64-bit partials
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_seconds: Optional[float] = None
-KERNELS = ("xor_split", "merge_xor", "split", "merge")
+KERNELS = tuple(_SIGNATURES)
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -101,6 +103,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.zllm_error_string.argtypes = [ctypes.c_int]
             lib.zllm_error_string.restype = ctypes.c_char_p
+            lib.zllm_grid.argtypes = [ctypes.c_int64]
+            lib.zllm_grid.restype = ctypes.c_int64
             _build_seconds = time.perf_counter() - t0
             _lib = lib
         return _lib
@@ -128,6 +132,21 @@ def check_bytes(t: torch.Tensor, nb: int, what: str) -> int:
     if t.device.type == "cuda" and t.data_ptr() % nb:
         raise ValueError(f"{what} is not aligned to its {nb}-byte words")
     return t.numel() // nb
+
+
+def check_pair(a: torch.Tensor, b: torch.Tensor, nb: int, names=("a", "b")) -> int:
+    """:func:`check_bytes` for two operands that must hold the same number of
+    words on one device. Returns the word count."""
+    n = check_bytes(a, nb, names[0])
+    if check_bytes(b, nb, names[1]) != n or b.device != a.device:
+        raise ValueError(f"{names[0]} and {names[1]} must hold the same words on one device")
+    return n
+
+
+def grid(n: int) -> int:
+    """Blocks every launcher uses for ``n`` words (0 for ``n == 0``): the
+    length of the hamming kernel's partials."""
+    return library().zllm_grid(n)
 
 
 def launch(kernel: str, *tensors: torch.Tensor, n: int, nb: int) -> None:

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) kernels for the zLLM storage path: BitX XOR-delta byte planes
-// and the ZipNN byte-plane shuffle.
+// Hopper (sm_90a) kernels for the zLLM storage path: BitX XOR-delta byte planes,
+// the ZipNN byte-plane shuffle, the plain word XOR and the bit-distance
+// (XOR + popcount) reduction.
 //
 // Every buffer is flat. A tensor of n little-endian words of NB bytes (NB in
 // {1, 2, 4, 8}) is a byte buffer of n*NB bytes; its planes are one (NB, n)
@@ -7,7 +8,7 @@
 // exactly the layout of the numpy host path (`_xor_delta_planes_host` in
 // core/bitx.py).
 //
-// All four kernels are memory-bound: a handful of integer operations per word
+// All six kernels are memory-bound: a handful of integer operations per word
 // against 2*NB or 3*NB bytes moved. The design is the simplest one that keeps
 // neighbouring threads on neighbouring words: a grid-stride loop over words,
 // one word per thread per step, the tail masked by the loop bound. Word loads
@@ -17,7 +18,9 @@
 //
 // Each launcher is a plain C function (no PyTorch headers, so nvcc builds it in
 // seconds): device pointers, the word count n, the word width nb and the CUDA
-// stream in; cudaGetLastError() out. n == 0 launches nothing.
+// stream in; cudaGetLastError() out. n == 0 launches nothing. zllm_grid(n)
+// gives the grid every launcher uses, so the caller can size the hamming
+// kernel's one-partial-per-block output.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,6 +99,74 @@ __global__ void merge_kernel(const uint8_t* __restrict__ planes, W* __restrict__
   }
 }
 
+// Replaces src/repro/kernels/bitx_xor.py::xor_2d (_xor_kernel).
+// Bound: reads 2*n*NB bytes, writes n*NB bytes -> 3*n*NB bytes.
+template <typename W>
+__global__ void xor_kernel(const W* __restrict__ a, const W* __restrict__ b, W* __restrict__ out,
+                           int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
+    out[i] = static_cast<W>(a[i] ^ b[i]);
+  }
+}
+
+template <typename W>
+__device__ __forceinline__ unsigned count_bits(W w) {
+  if constexpr (sizeof(W) == 8) {
+    return static_cast<unsigned>(__popcll(static_cast<unsigned long long>(w)));
+  } else {
+    return static_cast<unsigned>(__popc(static_cast<unsigned>(w)));
+  }
+}
+
+// Replaces src/repro/kernels/hamming.py::hamming_partials_2d (_hamming_kernel).
+// Bound: reads 2*n*NB bytes (plus gridDim.x 8-byte partials written, negligible).
+// Each thread counts the differing bits of its grid-stride words in 64 bits,
+// the warp sums with shuffles, the block sums its warps' totals through shared
+// memory and writes one 64-bit partial; the caller sums the <= kMaxBlocks
+// partials. No atomics, so the partials do not depend on scheduling. The TPU
+// kernel keeps u32 partials because its blocks are bounded; a grid-stride
+// block here covers n / gridDim.x words, and 64 bits leave the grid free.
+template <typename W>
+__global__ void hamming_partials_kernel(const W* __restrict__ a, const W* __restrict__ b,
+                                        unsigned long long* __restrict__ partials, int64_t n) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ unsigned long long warp_sums[kWarps];
+  unsigned long long acc = 0;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
+    acc += count_bits<W>(static_cast<W>(a[i] ^ b[i]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    acc = lane < kWarps ? warp_sums[lane] : 0ULL;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) partials[blockIdx.x] = acc;
+  }
+}
+
+template <typename W>
+cudaError_t launch_xor(const void* a, const void* b, void* out, int64_t n, cudaStream_t stream) {
+  xor_kernel<W><<<grid_for(n), kThreads, 0, stream>>>(
+      static_cast<const W*>(a), static_cast<const W*>(b), static_cast<W*>(out), n);
+  return cudaGetLastError();
+}
+
+template <typename W>
+cudaError_t launch_hamming(const void* a, const void* b, void* partials, int64_t n,
+                           cudaStream_t stream) {
+  hamming_partials_kernel<W><<<grid_for(n), kThreads, 0, stream>>>(
+      static_cast<const W*>(a), static_cast<const W*>(b),
+      static_cast<unsigned long long*>(partials), n);
+  return cudaGetLastError();
+}
+
 template <typename W>
 cudaError_t launch_xor_split(const void* base, const void* ft, void* planes, int64_t n,
                              cudaStream_t stream) {
@@ -128,7 +199,7 @@ cudaError_t launch_merge(const void* planes, void* out, int64_t n, cudaStream_t 
 
 }  // namespace
 
-// Word-width dispatch shared by the four launchers: W is the unsigned word
+// Word-width dispatch shared by the launchers: W is the unsigned word
 // type of width nb; any other nb is refused before a launch.
 #define ZLLM_DISPATCH_NB(nb, CALL)                                   \
   switch (nb) {                                                      \
@@ -162,6 +233,19 @@ int zllm_merge(const void* planes, void* out, int64_t n, int nb, void* stream) {
   if (n == 0) return static_cast<int>(cudaSuccess);
   ZLLM_DISPATCH_NB(nb, launch_merge<W>(planes, out, n, static_cast<cudaStream_t>(stream)))
 }
+
+int zllm_xor(const void* a, const void* b, void* out, int64_t n, int nb, void* stream) {
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  ZLLM_DISPATCH_NB(nb, launch_xor<W>(a, b, out, n, static_cast<cudaStream_t>(stream)))
+}
+
+// partials: zllm_grid(n) 64-bit slots, one per block.
+int zllm_hamming(const void* a, const void* b, void* partials, int64_t n, int nb, void* stream) {
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  ZLLM_DISPATCH_NB(nb, launch_hamming<W>(a, b, partials, n, static_cast<cudaStream_t>(stream)))
+}
+
+int64_t zllm_grid(int64_t n) { return static_cast<int64_t>(grid_for(n)); }
 
 const char* zllm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -7,7 +7,8 @@ f64 -> u64), flattens them to byte buffers and reshapes the results. The
 reference's ``(rows, 1024)`` padding and block-row evenness are TPU plumbing
 and have no counterpart: the CUDA kernels take flat buffers and mask the tail.
 Dispatch follows the tensor: CPU tensors take the plain PyTorch versions, CUDA
-tensors the kernels.
+tensors the kernels. Besides the four plane ops of the store, it holds the
+paper's bit distance (Eq. 1): ``hamming_total`` and ``bit_distance``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels import bitx_xor as _bitx
 from repro_torch.kernels import byte_planes as _bp
+from repro_torch.kernels import hamming as _ham
 
 __all__ = [
     "bit_view_dtype",
@@ -26,6 +28,8 @@ __all__ = [
     "bitx_decode_planes",
     "zipnn_split_planes",
     "zipnn_merge_planes",
+    "hamming_total",
+    "bit_distance",
 ]
 
 _FLOAT_TO_UINT = {
@@ -63,12 +67,18 @@ def _stack(planes: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([p.reshape(-1) for p in planes])
 
 
+def _bit_views(x: torch.Tensor, y: torch.Tensor):
+    """Bit views of two tensors that must agree in shape and dtype."""
+    a, b = to_bit_view(x), to_bit_view(y)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise ValueError(f"operands {tuple(a.shape)}/{a.dtype} and {tuple(b.shape)}/{b.dtype} differ")
+    return a, b
+
+
 def bitx_encode_planes(base: torch.Tensor, ft: torch.Tensor) -> List[torch.Tensor]:
     """XOR-delta byte planes (MSB first) of ``ft`` against ``base``: flat uint8
     planes of length ``numel(base)``."""
-    a, b = to_bit_view(base), to_bit_view(ft)
-    if a.shape != b.shape or a.dtype != b.dtype:
-        raise ValueError(f"base {a.shape}/{a.dtype} and ft {b.shape}/{b.dtype} differ")
+    a, b = _bit_views(base, ft)
     return list(_bitx.xor_split(_words(a), _words(b), a.element_size()).unbind(0))
 
 
@@ -92,3 +102,18 @@ def zipnn_merge_planes(planes: Sequence[torch.Tensor], dtype: torch.dtype,
     tensor of ``shape``."""
     out = _bp.merge(_stack(planes))
     return out.view(bit_view_dtype(dtype)).view(tuple(shape))
+
+
+# ---------------------------------------------------------------------------
+# Bit distance
+# ---------------------------------------------------------------------------
+
+def hamming_total(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Total differing bits between two same-shape tensors (exact)."""
+    av, bv = _bit_views(a, b)
+    return _ham.hamming_total(_words(av), _words(bv), av.element_size())
+
+
+def bit_distance(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Paper Eq. 1: mean differing bits per element."""
+    return hamming_total(a, b) / max(a.numel(), 1)

@@ -1,5 +1,6 @@
-"""The four storage kernels of the port on the card, byte for byte against
-their plain PyTorch versions, plus the device store path.
+"""The six kernels of the port on the card, byte for byte (the bit counts
+exactly) against their plain PyTorch versions, the device store path and the
+bit-distance calibration on the card.
 
 Run on a machine with a CUDA card:
 
@@ -15,10 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import bitdistance
 from repro_torch.core.bitx import NumpyBackend, TorchBackend
 from repro_torch.core.pipeline import ZLLMStore
 from repro_torch.corpus import CorpusSpec, make_base_tensors, make_finetune, write_repo
-from repro_torch.kernels import _build, bitx_xor, byte_planes, ref
+from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming, ops, ref
 
 pytestmark = pytest.mark.gpu
 
@@ -68,6 +70,65 @@ def test_kernels_match_plain_versions(cuda, nb, n):
     xor = np.bitwise_xor(a.cpu().numpy(), b.cpu().numpy()).reshape(-1, nb)
     for i in range(nb):
         assert (got["xor_split"][i].cpu().numpy() == xor[:, nb - 1 - i]).all()
+
+
+@pytest.mark.parametrize("nb", WIDTHS)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_bit_distance_kernels_match_plain_versions(cuda, nb, n):
+    a, b = _rand_bytes(n * nb, 8, cuda), _rand_bytes(n * nb, 9, cuda)
+    before = _build.launch_counts()
+    xor = bitx_xor.xor(a, b, nb)
+    partials = hamming.hamming_partials(a, b, nb)
+    total = hamming.hamming_total(a, b, nb)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert xor.device.type == "cuda" and torch.equal(xor, ref.xor_words(a, b))
+    # one 64-bit partial per block of the grid every launcher uses
+    assert partials.device.type == "cuda" and partials.dtype == torch.int64
+    assert partials.numel() == min(-(-n // 256), 132 * 16)
+    want = ref.hamming_total(a, b, nb)
+    assert total == int(partials.sum()) == want
+    assert want == int(np.unpackbits(np.bitwise_xor(a.cpu().numpy(), b.cpu().numpy())).sum())
+    assert after["xor"] - before["xor"] == (1 if n else 0)
+    assert after["hamming"] - before["hamming"] == (2 if n else 0)
+
+
+def test_hamming_total_past_two_to_the_32(cuda):
+    """Two independent random buffers of 1.1 GB differ in about 4.4e9 bits:
+    no stage of the count may keep 32 bits."""
+    n = 550_000_000  # 2-byte words
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    a = torch.randint(0, 256, (2 * n,), dtype=torch.uint8, device="cuda", generator=gen)
+    b = torch.randint(0, 256, (2 * n,), dtype=torch.uint8, device="cuda", generator=gen)
+    got = hamming.hamming_total(a, b, 2)
+    assert got > 2**32
+    assert got == ref.hamming_total(a, b, 2)
+    assert got == int(np.bitwise_count(np.bitwise_xor(a.cpu().numpy().view(np.uint64),
+                                                      b.cpu().numpy().view(np.uint64)))
+                      .sum(dtype=np.uint64))
+
+
+def test_bit_distance_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((257, 129)).astype(np.float32) * 0.02)
+    y = x + torch.from_numpy(rng.standard_normal((257, 129)).astype(np.float32) * 0.001)
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        xc, yc = x.to(dt), y.to(dt)
+        assert ops.hamming_total(xc.cuda(), yc.cuda()) == ops.hamming_total(xc, yc) > 0
+        assert ops.bit_distance(xc.cuda(), yc.cuda()) == ops.bit_distance(xc, yc)
+
+
+def test_calibration_on_card(cuda):
+    """The calibration's default device is the card, and its estimates pass
+    the band checks of tests/test_core_storage.py:163-168."""
+    before = _build.launch_counts()["hamming"]
+    lo = bitdistance.expected_bit_distance_mc(0.05, 0.0005, n=20_000)
+    hi = bitdistance.expected_bit_distance_mc(0.015, 0.02, n=20_000)
+    assert 0.5 <= lo <= 6.0 and 2.5 <= hi <= 7.0
+    res = bitdistance.calibration_heatmap(n=20_000)
+    assert res.heatmap.shape == (6, 6) and np.isfinite(res.heatmap).all()
+    assert 1.0 <= res.within_family_range[0] <= res.within_family_range[1] <= 7.0
+    assert _build.launch_counts()["hamming"] - before == 2 + 36
 
 
 def test_roundtrip_on_card(cuda):

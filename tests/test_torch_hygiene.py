@@ -10,8 +10,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.core import bitx, pipeline
-from repro_torch.kernels import _build, bitx_xor, byte_planes
+from repro_torch.core import bitdistance, bitx, pipeline
+from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -69,6 +69,19 @@ def test_no_card_means_no_store(monkeypatch, tmp_path):
     assert bitx.TorchBackend(device="cpu").device.type == "cpu"
 
 
+def test_no_card_means_no_calibration(monkeypatch):
+    """The Monte-Carlo calibration runs on the card by default; without one it
+    raises instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bitdistance.expected_bit_distance_mc(0.02, 0.001)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bitdistance.calibration_heatmap(n=10)
+    with pytest.raises(ValueError):
+        bitdistance.expected_bit_distance_mc(0.02, 0.001, n=10, device="meta")
+    assert bitdistance.expected_bit_distance_mc(0.02, 0.001, n=10, device="cpu") >= 0.0
+
+
 @pytest.mark.parametrize("spec", ["jax", "auto", "pallas"])
 def test_get_backend_rejects_reference_names(spec):
     with pytest.raises(ValueError, match="torch"):
@@ -109,9 +122,14 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     before = _build.launch_counts()
     assert torch.equal(byte_planes.merge(byte_planes.split(x, 4)), x)
     assert torch.equal(bitx_xor.merge_xor(bitx_xor.xor_split(x, x.flip(0), 2), x), x.flip(0))
+    assert bitx_xor.xor(x, x, 4).count_nonzero() == 0
+    assert hamming.hamming_total(x, x.flip(0), 8) > 0
     assert _build.launch_counts() == before
     with pytest.raises(ValueError):
         byte_planes.split(torch.empty(16, dtype=torch.uint8, device="meta"), 4)
+    with pytest.raises(ValueError):
+        hamming.hamming_total(torch.empty(16, dtype=torch.uint8, device="meta"),
+                              torch.empty(16, dtype=torch.uint8, device="meta"), 4)
     with pytest.raises(TypeError):
         byte_planes.split(torch.zeros(4, dtype=torch.float32), 4)
     with pytest.raises(ValueError):
