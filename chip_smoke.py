@@ -6,7 +6,8 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: require CUDA, print ``nvidia-smi`` name and power limit;
-2. build: compile ``src/repro_torch/kernels/csrc/planes.cu`` with nvcc;
+2. build: compile ``src/repro_torch/kernels/csrc/planes.cu`` and
+   ``flash_attention.cu`` with nvcc, one process per source, in parallel;
 3. kernels: each of the six kernels against its plain PyTorch version on the
    card, byte for byte (bit counts exactly), at word widths 1/2/4/8 and
    awkward lengths, then at the main path's largest shape (the Qwen2-7B
@@ -30,7 +31,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. calibration: the Monte-Carlo heatmap of E[D(w, w+delta)] (paper Fig. 11,
    N = 100,000, the reference's 6x6 grid) on the card, with the reference
    tests' band checks. The hamming launches of phases 4b and 6 show that bit
-   distance went through its kernel.
+   distance went through its kernel;
+7. serve: the paper's serving cold start at Qwen2-7B's published widths,
+   depth cut from 28 decoder layers to 4 (full-vocabulary embed and lm_head
+   kept). Base parameters drawn on the card with ``init_params``, a fine-tune
+   from ``make_finetune``, both written as ``params/<name>`` BF16 safetensors
+   and ingested into the port's store (the fine-tune BitX-coded against its
+   declared base); ``ServeEngine.from_store`` cold-starts the fine-tune
+   (params bit-equal to the source) and ``RequestBatcher(batch_size=4,
+   n_new=16)`` serves 8 requests of 33-2032 prompt tokens. Prefill runs the
+   flash kernel in every layer (exactly 4 layers x 2 prefills). The same
+   requests are then served again with each flash call held against its plain
+   version on its own inputs, and the prefill logits of the flash and plain
+   attention engines are held to the float32 model's.
+
+Phase 3 also holds the flash-attention kernel against its plain version
+(``ref.mha_reference``) at the reference tests' cases, ragged lengths, every
+head dim, bidirectional and windowed masks, and times it at the shapes phase
+7's prefills give it (B 4, S 2032 and 512, H 28, D 128, bf16, causal) and at
+S 2048, beside its bound and ``torch.nn.functional.scaled_dot_product_attention``.
 
 The last two lines are the kernels line (one JSON object) and the result line
 ``{"ok": true, "device": {...}}``. Model files and stores go to a temporary
@@ -44,16 +63,19 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+import dataclasses  # noqa: E402
 import hashlib  # noqa: E402
 import json  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import qwen2_7b  # noqa: E402
 from repro_torch.core.bitdistance import (bit_distance_files, calibration_heatmap,  # noqa: E402
                                           hamming_total_arrays, shape_signature)
 from repro_torch.core.bitx import TorchBackend  # noqa: E402
@@ -61,10 +83,15 @@ from repro_torch.core.pipeline import ZLLMStore  # noqa: E402
 from repro_torch.corpus import CorpusSpec, make_base_tensors, make_finetune, write_repo  # noqa: E402
 from repro_torch.formats.safetensors import SafetensorsFile  # noqa: E402
 from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.api import get_model, init_params  # noqa: E402
+from repro_torch.serve.engine import RequestBatcher, ServeEngine  # noqa: E402
 
 DEVICE = "cuda"
 SEED = 0  # every weight and input of the run is drawn from generators seeded from it
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate (used for every bound below)
+BF16_FLOP_PER_S = 989e12   # H100 SXM published dense bf16 tensor-core rate
 
 # Qwen2-7B's published widths (src/repro/configs/qwen2_7b.py:5-12)
 QWEN2_7B = dict(d_model=3584, d_ff=18944, vocab=152064, n_heads=28, n_kv_heads=4, qkv_bias=True)
@@ -87,6 +114,22 @@ KERNELS = {
     "hamming": ("src/repro/kernels/hamming.py:36", 2, "none: PyTorch has no popcount"),
 }
 SOURCE = "src/repro_torch/kernels/csrc/planes.cu"
+FLASH = {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:99",
+         "library": "torch.nn.functional.scaled_dot_product_attention"}
+
+# the serving run of phase 7
+SERVE_LAYERS = 4
+SERVE_PROMPTS = (2032, 1500, 1024, 700, 512, 300, 128, 33)
+SERVE_BATCH, SERVE_NEW = 4, 16
+# Prefill logits of the bf16 engines are held to the float32 model on the same
+# parameters and batches. Both attentions round bf16 at different points (the
+# kernel once from its float32 accumulator, the plain version after a bf16 PV
+# product), so the flash engine's logits may not equal the plain engine's; it
+# may stray from the float32 model no more than SERVE_DRIFT times as far as
+# the plain engine does: the kernel adds no error of its own beyond bf16's.
+SERVE_DRIFT = 2.0
 
 
 def log(msg: str) -> None:
@@ -214,6 +257,91 @@ def phase_kernels(gen: torch.Generator) -> dict:
     del a, b
     torch.cuda.empty_cache()
     report["xor"]["launches"] = _build.launch_counts()["xor"]
+    return report
+
+
+# (B, Sq, Sk, H, D, causal, window): tests/test_flash_kernel.py:12-19 first,
+# then ragged lengths, every head dim, bidirectional and windowed masks
+FLASH_CASES = [
+    (2, 256, 256, 4, 128, True, 0), (1, 512, 512, 2, 128, False, 0),
+    (2, 256, 256, 4, 128, True, 64), (1, 1024, 1024, 1, 128, True, 0),
+    (1, 256, 256, 2, 256, True, 0),
+    (2, 33, 33, 3, 64, True, 0), (1, 1000, 1000, 2, 128, True, 0),
+    (2, 300, 300, 4, 16, True, 0), (2, 300, 300, 4, 32, False, 0),
+    (2, 300, 300, 4, 64, False, 64), (1, 200, 200, 2, 256, True, 64),
+    (1, 70, 200, 2, 64, False, 0),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_flash_kernel.py:33
+# (B, S) of the timed shapes, all bf16 causal at Qwen2-7B's 28 query heads of
+# dim 128 (the 4 KV heads expanded). Phase 7's batcher left-pads each batch of
+# 4 prompts to its longest, so its two prefills give the kernel S = 2032 (not a
+# multiple of either tile) and S = 512; S = 2048 is the power of two beside
+# them. The kernels line reports the first, the largest shape of the path.
+FLASH_TIMED = ((4, 2032), (4, 512), (4, 2048))
+FLASH_H, FLASH_D = 28, 128
+
+
+def flash_checked(q, k, v, causal: bool, window: int = 0) -> tuple:
+    """(kernel output, max |kernel - plain version|) on the same inputs;
+    raises past the reference tests' rtol and atol for the inputs' dtype."""
+    tol = FLASH_TOL[q.dtype]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if not bool((diff <= tol + tol * want.float().abs()).all()):
+        raise AssertionError(f"flash_attention q {tuple(q.shape)} k {tuple(k.shape)} "
+                             f"causal={causal} window={window} {q.dtype}: max_abs_err {err}")
+    return got, err
+
+
+def flash_bound(B: int, S: int, H: int, D: int) -> tuple:
+    """(bound ms, what bounds it) of causal bf16 attention at these shapes:
+    both products over the unmasked (q, k) pairs at the bf16 tensor-core rate,
+    against each input read and the output written once at the memory rate."""
+    pairs = B * H * S * (S + 1) // 2
+    ops_ms = 4 * pairs * D / BF16_FLOP_PER_S * 1e3
+    bytes_ms = 4 * B * S * H * D * 2 / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def phase_flash(gen: torch.Generator) -> dict:
+    """The flash kernel against its plain version; its times at the serving
+    path's shapes. Returns its report entry (the first timed shape's)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    worst = {}
+    for B, Sq, Sk, H, D, causal, window in FLASH_CASES:
+        for dt in FLASH_TOL:
+            q = torch.randn((B, Sq, H, D), generator=gen, device=DEVICE).to(dt)
+            k, v = (torch.randn((B, Sk, H, D), generator=gen, device=DEVICE).to(dt)
+                    for _ in range(2))
+            worst[dt] = max(worst.get(dt, 0.0), flash_checked(q, k, v, causal, window)[1])
+    log(f"kernel flash_attention: equal to its plain version at {len(FLASH_CASES)} shapes "
+        f"(D in {{16, 32, 64, 128, 256}}, ragged 33/1000, causal, bidirectional, window 64, "
+        f"Sq != Sk) in float32 (max_abs_err {worst[torch.float32]:.3e}, tolerance 2e-5) and "
+        f"bf16 (max_abs_err {worst[torch.bfloat16]:.3e}, tolerance 2e-2), as rtol and atol")
+
+    report = None
+    H, D = FLASH_H, FLASH_D
+    for B, S in FLASH_TIMED:
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+                   for _ in range(3))
+        err = flash_checked(q, k, v, causal=True)[1]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, S, D), same storage
+        r = {"max_abs_err": err, "shape": [B, S, H, D],
+             "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True)),
+             "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=True), iters=3),
+             "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True))}
+        r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D)
+        log(f"kernel flash_attention: {r['ms']:.4f} ms at B={B} S={S} H={H} D={D} bf16 causal "
+            f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} "
+            f"of it); plain version {r['plain_ms']:.4f} ms; library: "
+            f"torch.nn.functional.scaled_dot_product_attention {r['library_ms']:.4f} ms; "
+            f"max_abs_err {err:.3e} (tolerance 2e-2)")
+        report = report or r
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     return report
 
 
@@ -447,6 +575,184 @@ def phase_calibration() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serve the fine-tune from the compressed store
+# ---------------------------------------------------------------------------
+
+class _Timed:
+    """Wraps a model entry point: device-synchronised wall time per call, the
+    batch each call took and the logits it returned."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.batches, self.logits = fn, [], [], []
+
+    def __call__(self, *args):
+        self.batches.append(args[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = self.fn(*args)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        self.logits.append(logits)
+        return logits, cache
+
+
+def _serve(engine: ServeEngine, prompts) -> tuple:
+    """Serve ``prompts`` through a RequestBatcher; returns (tokens per request,
+    prefill timer, decode timer, wall seconds)."""
+    model = engine.model
+    prefill, decode = _Timed(model.prefill), _Timed(model.decode_step)
+    model.prefill, model.decode_step = prefill, decode
+    try:
+        batcher = RequestBatcher(engine, batch_size=SERVE_BATCH, n_new=SERVE_NEW)
+        ids = [batcher.submit(p) for p in prompts]
+        t0 = time.perf_counter()
+        done = []
+        while len(done) < len(ids):
+            done += batcher.run_once()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step  # the class's methods again
+    return [batcher.result(i) for i in ids], prefill, decode, wall
+
+
+def phase_serve(tmp: str, seed: int) -> tuple:
+    """Cold-start a 4-layer Qwen2-7B-width fine-tune from the store and serve
+    8 requests; returns the flash launches of the serving run and the kernel's
+    largest difference from its plain version on the inputs the run gave it."""
+    cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=SERVE_LAYERS)
+    log(f"serve: {cfg.name} widths (d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads, head dim {cfg.hd}, QKV bias, vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}); depth cut from {qwen2_7b.CONFIG.n_layers} decoder layers to "
+        f"{cfg.n_layers}, full-vocabulary embed and lm_head kept")
+    hub = os.path.join(tmp, "hub")
+    base_id, ft_id = "qwen/base-serve", "alice/ft-serve"
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    t0 = time.perf_counter()
+    base = init_params(cfg, gen)
+    ft = make_finetune(base, CorpusSpec(), gen)
+    n_params = sum(t.numel() for t in base.values())
+    write_repo(hub, base_id, {f"params/{k}": v for k, v in base.items()})
+    write_repo(hub, ft_id, {f"params/{k}": v for k, v in ft.items()}, base_model=base_id)
+    del base
+    torch.cuda.empty_cache()
+    size = os.path.getsize(os.path.join(hub, ft_id, "model.safetensors"))
+    log(f"serve: wrote base and fine-tune, {n_params / 1e9:.3f} G params ({size / 1e9:.3f} GB) "
+        f"each, in {time.perf_counter() - t0:.1f} s")
+
+    store = ZLLMStore(os.path.join(tmp, "store"), workers=min(16, os.cpu_count() or 1),
+                      entropy_procs=0)
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        store.ingest_repo(os.path.join(hub, base_id), base_id)
+        res = store.ingest_repo(os.path.join(hub, ft_id), ft_id)[0]
+        t_ingest = time.perf_counter() - t0
+        if not (res.base_id == base_id and res.n_bitx > 0):
+            raise AssertionError(f"serve: the fine-tune was not BitX-coded against its base: {res}")
+        shutil.rmtree(hub)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = ServeEngine.from_store(store, ft_id, "model.safetensors", cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        store_launches = _build.launch_counts()
+    finally:
+        store.close()
+    for name, t in ft.items():
+        got = engine.params[name]
+        if got.shape != t.shape or not torch.equal(got.view(torch.int16), t.view(torch.int16)):
+            raise AssertionError(f"serve: cold-started {name} is not bit-equal to the source")
+    del ft
+    torch.cuda.empty_cache()
+    log(f"serve: ingest of base + fine-tune {t_ingest:.1f} s (fine-tune BitX-coded against "
+        f"{res.base_id}, {res.n_bitx} BitX tensors); cold start (retrieve, verify sha256, "
+        f"parse, load to the card) {t_cold:.2f} s; all {len(engine.params)} params bit-equal "
+        f"to the source file's; store kernel launches in this phase "
+        f"{ {k: v for k, v in store_launches.items() if v} }")
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in SERVE_PROMPTS]
+    # the main path: counts from 0 just before, read just after
+    _build.reset_launch_counts()
+    toks, prefill, decode, wall = _serve(engine, prompts)
+    launches = _build.launch_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    n_prefills = -(-len(prompts) // SERVE_BATCH)
+    if launches != SERVE_LAYERS * n_prefills:
+        raise AssertionError(f"serve: {launches} flash launches, want {SERVE_LAYERS} layers x "
+                             f"{n_prefills} prefills")
+    for t in toks:
+        if t.shape != (SERVE_NEW,) or not ((0 <= t) & (t < cfg.vocab)).all():
+            raise AssertionError(f"serve: bad generated tokens {t}")
+    for lg in prefill.logits + decode.logits:
+        if not torch.isfinite(lg).all():
+            raise AssertionError("serve: non-finite logits")
+
+    # the kernel on exactly the tensors the path gives it: the same requests
+    # served again, each flash call of every prefill layer held against its
+    # plain version on its own inputs (after the count above, so not counted)
+    path_errs = []
+
+    def checked(q, k, v, *, causal, window):
+        got, err = flash_checked(q, k, v, causal, window)
+        path_errs.append((tuple(q.shape), err))
+        return got
+
+    transformer.flash_attention = checked
+    try:
+        _serve(engine, prompts)
+    finally:
+        transformer.flash_attention = flash_attention
+    if len(path_errs) != launches:
+        raise AssertionError(f"serve: {len(path_errs)} flash calls checked, {launches} launched")
+    path_err = max(e for _, e in path_errs)
+    log(f"serve: each of the {len(path_errs)} flash calls of the serving run equal to its plain "
+        f"version on its own inputs (q shapes {sorted(set(s for s, _ in path_errs))}, bf16, "
+        f"causal; max_abs_err {path_err:.3e}, tolerance 2e-2 as rtol and atol)")
+
+    plain = ServeEngine(cfg, engine.params, device=DEVICE, attn="plain")
+    before = _build.launch_counts()["flash_attention"]
+    plain_toks, plain_prefill, _, _ = _serve(plain, prompts)
+    if _build.launch_counts()["flash_attention"] != before:
+        raise AssertionError("serve: the plain engine launched the flash kernel")
+    errs = [float((a - b).abs().max()) for a, b in zip(prefill.logits, plain_prefill.logits)]
+    scale = max(float(b.abs().max()) for b in plain_prefill.logits)
+    # the float32 model (plain attention, float32 products) on the same batches
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32 = get_model(dataclasses.replace(cfg, param_dtype="float32", act_dtype="float32"),
+                        attn="plain")
+    params32 = {k: v.float() for k, v in engine.params.items()}
+    drift = {"flash": [], "plain": []}
+    for batch, lf, lp in zip(prefill.batches, prefill.logits, plain_prefill.logits):
+        l32, _ = model32.prefill(params32, batch)
+        drift["flash"].append(float((lf - l32).abs().max()))
+        drift["plain"].append(float((lp - l32).abs().max()))
+    del params32
+    torch.cuda.empty_cache()
+    if not max(drift["flash"]) <= SERVE_DRIFT * max(drift["plain"]):
+        raise AssertionError(f"serve: flash engine {drift['flash']} from the float32 model's "
+                             f"prefill logits, plain engine {drift['plain']} (allowed: "
+                             f"{SERVE_DRIFT}x the plain engine's)")
+    agree = sum(int((a == b).sum()) for a, b in zip(toks, plain_toks))
+    n_tok = len(prompts) * SERVE_NEW
+    pre_ms = [1e3 * x for x in prefill.seconds]
+    dec_ms = 1e3 * sum(decode.seconds) / len(decode.seconds)
+    log(f"serve: {len(prompts)} requests (prompts {list(SERVE_PROMPTS)} tokens, batches of "
+        f"{SERVE_BATCH} left-padded to {[max(SERVE_PROMPTS[i:i + SERVE_BATCH]) for i in range(0, len(prompts), SERVE_BATCH)]}, "
+        f"{SERVE_NEW} new tokens each) in {wall:.3f} s: {n_tok / wall:.1f} generated tokens/s; "
+        f"prefill {', '.join(f'{x:.2f}' for x in pre_ms)} ms per batch; decode "
+        f"{dec_ms:.3f} ms per step ({len(decode.seconds)} steps, one token for each of "
+        f"{SERVE_BATCH} rows); peak device memory {peak / 2**30:.2f} GiB; flash launches "
+        f"{launches} ({SERVE_LAYERS} layers x {n_prefills} prefills, none in decode)")
+    log(f"serve: prefill logits (max |logit| {scale:.3f}) against the float32 model's, max_abs_err "
+        f"per batch: flash engine {', '.join(f'{e:.4e}' for e in drift['flash'])}, plain engine "
+        f"{', '.join(f'{e:.4e}' for e in drift['plain'])} (allowed for flash: {SERVE_DRIFT}x the "
+        f"plain engine's); flash against plain {', '.join(f'{e:.4e}' for e in errs)}; greedy "
+        f"tokens agreeing between the engines {agree} of {n_tok}")
+    return launches, path_err
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -461,11 +767,13 @@ def main() -> int:
 
     # phase 2: build
     _build.library()
-    log(f"build: {SOURCE} compiled and loaded in {_build.build_seconds():.1f} s "
+    log(f"build: {', '.join(str(p.relative_to(Path(__file__).resolve().parent)) for p in _build.SOURCES)} "
+        f"compiled and loaded in {_build.build_seconds():.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     report = phase_kernels(gen)
+    report["flash_attention"] = phase_flash(gen)
     tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-")
     try:
         launches = phase_store(tmp, SEED)
@@ -476,6 +784,11 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["hamming"] += phase_calibration()
+    tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-serve-")
+    try:
+        launches["flash_attention"], path_err = phase_serve(tmp, SEED)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # no path of the JAX package calls xor_2d: its count is phase 3's
     launches["xor"] = report["xor"]["launches"]
     log(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -494,6 +807,15 @@ def main() -> int:
             "library": KERNELS[name][2],
             "card": smi,
         })
+    r = report["flash_attention"]
+    kernels.append({
+        **{k: FLASH[k] for k in ("name", "route", "source", "replaces")},
+        "launches": launches["flash_attention"], "launched_by": "phase 7 (serve)",
+        "matched": True, "max_abs_err": max(r["max_abs_err"], path_err), "shape": r["shape"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library": FLASH["library"],
+        "card": smi,
+    })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -1,16 +1,19 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled by ``nvcc`` into a shared library with a plain C
+The sources are compiled by ``nvcc`` into one shared library with a plain C
 interface and loaded with :mod:`ctypes` (no PyTorch headers, so the build takes
-seconds). The build runs at first use, when the first CUDA tensor reaches a
+seconds). Each source compiles in its own ``nvcc`` process, all started
+together, and one more links them. The build runs at first use, when the first CUDA tensor reaches a
 wrapper, never at import: this module imports on a machine without ``nvcc`` or
 a card. The library lands in ``build/repro_torch/`` at the repository root,
 named by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. A failed build raises; nothing falls back to the plain
 PyTorch versions.
 
-Launch counts live here too: each wrapper calls :func:`launch`, which counts
-one launch per kernel call that actually reached the card.
+Launch counts live here too: each wrapper calls :func:`launch` (the storage
+kernels' ``(*tensors, n, nb)`` convention) or :func:`launch_args` (any other
+launcher, such as flash attention's), which count one launch per kernel call
+that actually reached the card.
 """
 
 from __future__ import annotations
@@ -28,13 +31,14 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["BUILD_DIR", "KERNELS", "SOURCES", "NVCC_FLAGS", "library", "build_seconds",
-           "check_bytes", "check_pair", "grid", "launch", "launch_counts", "reset_launch_counts"]
+           "check_bytes", "check_pair", "grid", "launch", "launch_args", "launch_counts",
+           "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "planes.cu",)
+SOURCES = (_PKG / "csrc" / "planes.cu", _PKG / "csrc" / "flash_attention.cu")
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # C signatures of the launchers in csrc/planes.cu: pointers (inputs, then
 # outputs), then the word count n (int64), the word width nb (int) and the
@@ -47,6 +51,9 @@ _SIGNATURES = {
     "merge": (_P, _P, _N, _NB, _P),
     "xor": (_P, _P, _P, _N, _NB, _P),
     "hamming": (_P, _P, _P, _N, _NB, _P),  # out: grid(n) 64-bit partials
+    # csrc/flash_attention.cu: q, k, v, o; B, Sq, Sk, H, D; the B/S/H element
+    # strides of q, k, v and o; causal, window, dtype code; the stream
+    "flash_attention": (_P,) * 4 + (_N,) * 5 + (_N,) * 12 + (_NB,) * 3 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -73,18 +80,36 @@ def _library_path() -> Path:
     for src in SOURCES:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libzllm_planes_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libzllm_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds) -> None:
+    """Run the commands as concurrent processes; raise on the first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def _compile(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{src.stem}.{out.stem}.{tag}.o") for src in SOURCES]
+    tmp = out.with_name(f"{out.name}.{tag}.tmp")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(SOURCES, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:
@@ -150,15 +175,20 @@ def grid(n: int) -> int:
 
 
 def launch(kernel: str, *tensors: torch.Tensor, n: int, nb: int) -> None:
-    """Launch ``kernel`` (C function ``zllm_<kernel>``) on ``tensors``' device
-    pointers (inputs first, then outputs) and the current stream; raise on a
-    non-zero ``cudaError_t``. Counts one launch; ``n == 0`` must not reach
-    here."""
+    """Launch a storage kernel (C function ``zllm_<kernel>``) on ``tensors``'
+    device pointers (inputs first, then outputs), the word count and width and
+    the current stream. ``n == 0`` must not reach here."""
+    launch_args(kernel, tensors[0].device, *[t.data_ptr() for t in tensors], n, nb)
+
+
+def launch_args(kernel: str, device: torch.device, *args) -> None:
+    """Call the launcher ``zllm_<kernel>`` with ``args`` and then the current
+    stream of ``device``; raise on a non-zero ``cudaError_t``. Counts one
+    launch."""
     lib = library()
-    device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"zllm_{kernel}")(*[t.data_ptr() for t in tensors], n, nb, stream)
+        err = getattr(lib, f"zllm_{kernel}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err} "
                            f"({lib.zllm_error_string(err).decode()})")

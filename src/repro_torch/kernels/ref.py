@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the storage kernels (counterpart of
-``src/repro/kernels/ref.py:35-103``).
+"""Plain PyTorch versions of the kernels (counterpart of
+``src/repro/kernels/ref.py:35-125``).
 
 They are the semantic ground truth for the CUDA kernels in ``csrc/planes.cu``
 (the BitX and ZipNN byte planes, the word XOR and the bit-distance reduction)
@@ -14,6 +14,9 @@ Signatures match the wrappers in :mod:`repro_torch.kernels.bitx_xor`,
 :mod:`repro_torch.kernels.byte_planes` and :mod:`repro_torch.kernels.hamming`:
 words in as flat uint8 buffers of ``n * nb`` bytes, planes as one ``(nb, n)``
 uint8 tensor.
+
+``mha_reference`` is the plain version of the flash-attention kernel in
+``csrc/flash_attention.cu``: dense masked softmax attention.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["byte_split", "byte_merge", "xor_split_planes", "merge_planes_xor", "xor_words",
-           "hamming_total"]
+           "hamming_total", "mha_reference"]
 
 # set bits of every byte value: PyTorch has no popcount op
 _BYTE_POPCOUNT = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.int64)
@@ -61,3 +64,26 @@ def hamming_total(a: torch.Tensor, b: torch.Tensor, nb: int) -> int:
     word width does not change the count, only what a word is."""
     hist = torch.bincount(torch.bitwise_xor(a, b), minlength=256)
     return int((hist * _BYTE_POPCOUNT.to(hist.device)).sum())
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                  window: int = 0) -> torch.Tensor:
+    """Dense masked softmax attention, the plain version of the flash kernel
+    (``src/repro/kernels/ref.py:106-125``).
+
+    q: (B, Sq, H, D); k, v: (B, Sk, H, D). float32 scores and softmax, the
+    finite -1e30 mask (a row whose keys are all masked averages v uniformly),
+    output in q's dtype.
+    """
+    D = q.shape[-1]
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) / (D ** 0.5)
+    qi = torch.arange(q.shape[1], device=q.device)[:, None]
+    kj = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", p, v.float()).to(q.dtype)

@@ -1,6 +1,7 @@
-"""The six kernels of the port on the card, byte for byte (the bit counts
-exactly) against their plain PyTorch versions, the device store path and the
-bit-distance calibration on the card.
+"""The kernels of the port on the card against their plain PyTorch versions
+(the six storage kernels byte for byte, the bit counts exactly; flash
+attention within the reference's tolerances), the device store path, the
+bit-distance calibration and the serving engine on the card.
 
 Run on a machine with a CUDA card:
 
@@ -20,7 +21,10 @@ from repro_torch.core import bitdistance
 from repro_torch.core.bitx import NumpyBackend, TorchBackend
 from repro_torch.core.pipeline import ZLLMStore
 from repro_torch.corpus import CorpusSpec, make_base_tensors, make_finetune, write_repo
-from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming, ops, ref
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build, bitx_xor, byte_planes, flash_attention, hamming, ops, ref
+from repro_torch.models.api import init_params
+from repro_torch.serve.engine import RequestBatcher, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -194,3 +198,96 @@ def test_device_store_matches_numpy_store(cuda, tmp_path):
         blobs[name] = {str(p.relative_to(croot)): p.read_bytes()
                        for p in croot.rglob("*") if p.is_file()}
     assert blobs["numpy"] and blobs["numpy"] == blobs["torch"]
+
+
+FLASH_CASES = [
+    # (B, Sq, Sk, H, D, causal, window): tests/test_flash_kernel.py:12-19 first
+    (2, 256, 256, 4, 128, True, 0),
+    (1, 512, 512, 2, 128, False, 0),
+    (2, 256, 256, 4, 128, True, 64),
+    (1, 1024, 1024, 1, 128, True, 0),
+    (1, 256, 256, 2, 256, True, 0),
+    # ragged lengths, every head dim, bidirectional windows, Sq != Sk and rows
+    # whose keys are all masked (they average v uniformly)
+    (2, 33, 33, 3, 16, True, 0),
+    (1, 1000, 1000, 2, 128, True, 0),
+    (2, 100, 100, 2, 32, False, 0),
+    (1, 300, 300, 4, 64, False, 64),
+    (1, 70, 200, 2, 64, False, 0),
+    (1, 128, 16, 2, 32, False, 8),
+    # the serving path's prefills: Qwen2-7B's 28 heads of dim 128, batches of
+    # 4 left-padded to 2032 (not a multiple of either tile) and to 512 tokens
+    (4, 2032, 2032, 28, 128, True, 0),
+    (4, 512, 512, 28, 128, True, 0),
+]
+
+
+def _qkv(shape_q, shape_k, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device, dtype)
+            for s in (shape_q, shape_k, shape_k)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    B, Sq, Sk, H, D, causal, window = case
+    q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), dtype, 20, cuda)
+    before = _build.launch_counts()["flash_attention"]
+    got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] - before == 1
+    want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == (B, Sq, H, D)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2  # tests/test_flash_kernel.py:33
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_strided_operands(cuda):
+    """q, k and v sliced out of one fused (B, S, 3H, D) projection: the kernel
+    reads them through their strides."""
+    B, S, H, D = 2, 130, 4, 64
+    qkv = torch.randn((B, S, 3 * H, D), generator=torch.Generator(device="cuda").manual_seed(21),
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
+    assert not q.is_contiguous()
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    want = ref.mha_reference(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention.flash_attention(q, q, q)
+
+
+def test_serve_engine_on_card(cuda):
+    """The qwen2-7b smoke config in bf16 on the card: prefill goes through the
+    flash kernel once per layer and agrees with the plain engine; decode
+    launches no flash kernel."""
+    cfg = get_config("qwen2-7b", smoke=True)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4))
+    flash = ServeEngine(cfg, params, device="cuda")
+    plain = ServeEngine(cfg, params, device="cuda", attn="plain")
+    prompts = np.random.default_rng(5).integers(1, cfg.vocab, (4, 40)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+    lf, _ = flash.model.prefill(flash.params, batch)
+    lp, _ = plain.model.prefill(plain.params, batch)
+    # bf16 activations rounded at other points in the two attentions
+    torch.testing.assert_close(lf, lp, rtol=0.05, atol=0.05)
+    _build.reset_launch_counts()
+    batcher = RequestBatcher(flash, batch_size=4, n_new=5)
+    ids = [batcher.submit(p[: 10 + 7 * i]) for i, p in enumerate(prompts)]
+    assert sorted(batcher.run_once()) == ids
+    assert _build.launch_counts()["flash_attention"] == cfg.n_layers
+    for rid in ids:
+        out = batcher.result(rid)
+        assert out.shape == (5,) and ((0 <= out) & (out < cfg.vocab)).all()

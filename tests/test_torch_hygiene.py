@@ -10,8 +10,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import bitdistance, bitx, pipeline
 from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming
+from repro_torch.models import api
+from repro_torch.serve import engine
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -52,7 +55,10 @@ def test_port_imports_with_jax_and_reference_blocked():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(REPO), timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "repro_torch.core.pipeline" in modules
+    for m in ("repro_torch.core.pipeline", "repro_torch.models.transformer",
+              "repro_torch.serve.engine", "repro_torch.kernels.flash_attention",
+              "repro_torch.configs.qwen2_7b", "repro_torch.sharding.rules"):
+        assert m in modules, m
 
 
 def test_no_card_means_no_store(monkeypatch, tmp_path):
@@ -141,3 +147,53 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
 def test_launch_counters_reset():
     _build.reset_launch_counts()
     assert _build.launch_counts() == {k: 0 for k in _build.KERNELS}
+    assert set(_build.KERNELS) == {"xor_split", "merge_xor", "split", "merge", "xor", "hamming",
+                                   "flash_attention"}
+
+
+def test_no_card_means_no_engine(monkeypatch):
+    """Without a card the serving engine and its cold start raise, before
+    touching the store; ``device="cpu"`` works when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2-7b", smoke=True)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.ServeEngine(cfg, params)
+
+    class NoStore:
+        def retrieve_file(self, *a, **k):
+            raise AssertionError("the store was read before the device check")
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.ServeEngine.from_store(NoStore(), "org/m", "model.safetensors", cfg)
+    with pytest.raises(ValueError):
+        engine.ServeEngine(cfg, params, device="meta")
+    eng = engine.ServeEngine(cfg, params, device="cpu")
+    assert eng.device.type == "cpu" and eng.params["embed"].device.type == "cpu"
+
+
+def test_flash_on_cuda_without_a_card_raises(tmp_path):
+    """A CUDA tensor reaching the flash wrapper on a machine without nvcc and
+    a card raises (the build fails); it is never handed to the plain path.
+    Fake CUDA tensors stand in for real ones."""
+    code = ("import sys, warnings\n"
+            f"sys.path.insert(0, {str(REPO / 'src')!r})\n"
+            "warnings.simplefilter('ignore')\n"
+            "import torch\n"
+            "from torch._subclasses.fake_tensor import FakeTensorMode\n"
+            "from repro_torch.kernels import _build, flash_attention\n"
+            f"_build.BUILD_DIR = __import__('pathlib').Path({str(tmp_path)!r})\n"
+            "with FakeTensorMode():\n"
+            "    q = torch.empty((1, 8, 2, 16), device='cuda')\n"
+            "    try:\n"
+            "        flash_attention.flash_attention(q, q, q)\n"
+            "    except RuntimeError as e:\n"
+            "        print('raised:', e)\n"
+            "    else:\n"
+            "        print('ran')\n")
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable), CUDA_HOME="/nonexistent")
+    env.pop("CUDA_PATH", None)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("raised: nvcc not found"), proc.stdout
