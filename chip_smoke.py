@@ -6,11 +6,15 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: require CUDA, print ``nvidia-smi`` name and power limit;
-2. build: compile ``src/repro_torch/kernels/csrc/planes.cu`` and
-   ``flash_attention.cu`` with nvcc, one process per source, in parallel;
-3. kernels: each of the six kernels against its plain PyTorch version on the
-   card, byte for byte (bit counts exactly), at word widths 1/2/4/8 and
-   awkward lengths, then at the main path's largest shape (the Qwen2-7B
+2. build: compile ``src/repro_torch/kernels/csrc/planes.cu``,
+   ``flash_attention.cu`` and ``flash_attention_sm90.cu`` with nvcc (with
+   ``-Xptxas -v``), one process per source, in parallel; print each flash
+   kernel's registers and spills and the count of ``HGMMA`` (tensor-core)
+   instructions in each flash kernel's SASS (``cuobjdump -sass``);
+3. kernels: each of the six storage kernels against its plain PyTorch version
+   on the card, byte for byte (bit counts exactly), at word widths 1/2/4/8 and
+   awkward lengths (the word XOR also on operands off a 16-byte boundary and at
+   odd byte lengths), then at the main path's largest shape (the Qwen2-7B
    embedding, 152064 x 3584 bf16), timed with CUDA events beside its memory
    bound and, where one PyTorch call computes the same function, that call;
    plus a hamming total past 2^32 bits, also checked with numpy;
@@ -43,13 +47,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    flash kernel in every layer (exactly 4 layers x 2 prefills). The same
    requests are then served again with each flash call held against its plain
    version on its own inputs, and the prefill logits of the flash and plain
-   attention engines are held to the float32 model's.
+   attention engines are held to the float32 model's. Every flash call of the
+   serving run takes the ``sm90`` route.
 
-Phase 3 also holds the flash-attention kernel against its plain version
-(``ref.mha_reference``) at the reference tests' cases, ragged lengths, every
-head dim, bidirectional and windowed masks, and times it at the shapes phase
-7's prefills give it (B 4, S 2032 and 512, H 28, D 128, bf16, causal) and at
-S 2048, beside its bound and ``torch.nn.functional.scaled_dot_product_attention``.
+Phase 3 also holds both flash-attention kernels (routes ``sm90`` and ``simt``)
+against their plain version (``ref.mha_reference``) at the reference tests'
+cases, ragged lengths, every head dim, Sq != Sk, bidirectional and windowed
+masks, fully masked rows and strided (fused-projection) and misaligned
+operands, asserting the route of each call, and times both at the shapes
+phase 7's prefills give the kernel (B 4, S 2032 and 512, H 28, D 128, bf16,
+causal) and at S 2048, beside their bound, the plain version and
+``torch.nn.functional.scaled_dot_product_attention``, with the wrapper's host
+time per call.
 
 The last two lines are the kernels line (one JSON object) and the result line
 ``{"ok": true, "device": {...}}``. Model files and stores go to a temporary
@@ -66,6 +75,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 import dataclasses  # noqa: E402
 import hashlib  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
@@ -83,6 +93,7 @@ from repro_torch.core.pipeline import ZLLMStore  # noqa: E402
 from repro_torch.corpus import CorpusSpec, make_base_tensors, make_finetune, write_repo  # noqa: E402
 from repro_torch.formats.safetensors import SafetensorsFile  # noqa: E402
 from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.api import get_model, init_params  # noqa: E402
@@ -114,10 +125,14 @@ KERNELS = {
     "hamming": ("src/repro/kernels/hamming.py:36", 2, "none: PyTorch has no popcount"),
 }
 SOURCE = "src/repro_torch/kernels/csrc/planes.cu"
-FLASH = {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:99",
-         "library": "torch.nn.functional.scaled_dot_product_attention"}
+# the two routes of the flash-attention wrapper (kernels/flash_attention.py::route)
+FLASH = {
+    "sm90": {"name": "flash_attention_sm90",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"},
+    "simt": {"name": "flash_attention", "source": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+}
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:99"
+FLASH_LIBRARY = "torch.nn.functional.scaled_dot_product_attention"
 
 # the serving run of phase 7
 SERVE_LAYERS = 4
@@ -144,18 +159,45 @@ def sha256_file(path: str) -> str:
     return h.hexdigest()
 
 
-def cuda_ms(fn, iters: int = 10) -> float:
+HOLD_CYCLES = 60_000_000  # about 30 ms of a spin kernel at the H100's clocks
+
+
+def cuda_ms(fn, iters: int = 10, hold: bool = True) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls, after a
-    warm-up call, from CUDA events."""
+    warm-up call, from CUDA events. With ``hold``, a spin kernel holds the
+    stream while the host enqueues the calls, so they run back to back on the
+    card and the wrapper's host time per call (see :func:`host_us`) is not in
+    the number; raises if the host took longer than the spin. A call that
+    reads its result back to the host (a sync) is timed without the hold."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    held = not start.query()  # the spin still runs: every call was enqueued before the first ran
     end.synchronize()
+    if hold and not held:
+        raise AssertionError("the host enqueued the timed calls slower than the spin held them")
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host wall time of one call of ``fn``, in microseconds: the enqueue
+    (checks, route, tensor maps, ctypes), with the card kept busy so the
+    host never waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +232,33 @@ def max_abs_err(got, want) -> int:
     return int((got.int() - want.int()).abs().max())
 
 
+XOR_LENGTHS = (1, 15, 17, 2 ** 20 + 3)  # bytes
+XOR_OFFSETS = ((0, 0, 0), (1, 1, 1), (15, 15, 15), (1, 1, 0), (1, 0, 0), (3, 5, 7))  # a, b, out
+
+
+def xor_offsets() -> None:
+    """The word XOR streams bytes: 16-byte vectors where a, b and out share
+    their offset from a 16-byte boundary (scalar head and tail), single bytes
+    where they do not. Every byte of every case equals the plain version's,
+    and nothing outside ``out`` is written."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    n_max = max(XOR_LENGTHS) + 32
+    a, b = (torch.randint(0, 256, (n_max,), dtype=torch.uint8, device=DEVICE, generator=g)
+            for _ in range(2))
+    for n in XOR_LENGTHS:
+        for oa, ob, oo in XOR_OFFSETS:
+            x, y = a[oa:oa + n], b[ob:ob + n]
+            want = ref.xor_words(x, y)
+            out = torch.zeros(n + 32, dtype=torch.uint8, device=DEVICE)
+            _build.launch("xor", x, y, out[oo:oo + n], n=n, nb=1)
+            if not (torch.equal(out[oo:oo + n], want) and torch.equal(bitx_xor.xor(x, y, 1), want)
+                    and not out[:oo].any() and not out[oo + n:].any()):
+                raise AssertionError(f"xor of {n} bytes at offsets a {oa}, b {ob}, out {oo} "
+                                     "differs from its plain version")
+    log(f"kernel xor: byte-exact at lengths {list(XOR_LENGTHS)} bytes with (a, b, out) offsets "
+        f"{[list(o) for o in XOR_OFFSETS]} bytes from a 16-byte boundary (tolerance: exact)")
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
     _build.reset_launch_counts()
     report = {k: {"max_abs_err": 0} for k in KERNELS}
@@ -202,6 +271,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
                     raise AssertionError(f"{name} nb={nb} n={n}: max_abs_err {err}")
     log(f"kernels: all {len(KERNELS)} equal to their plain versions at nb in {{1,2,4,8}}, "
         "n in {1, 1023, 1025, 2^20+3} (tolerance: exact)")
+    xor_offsets()
 
     # the main path's largest tensor: the Qwen2-7B embedding, 152064 x 3584 bf16
     V, d = QWEN2_7B["vocab"], QWEN2_7B["d_model"]
@@ -234,7 +304,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
             raise AssertionError(f"{name} at the embedding shape: max_abs_err {err}")
         r = report[name]
         r["ms"] = cuda_ms(timed.get(name, kern))
-        r["plain_ms"] = cuda_ms(plain)
+        r["plain_ms"] = cuda_ms(plain, hold=name != "hamming")  # hamming's reads its total back
         r["bound_ms"] = KERNELS[name][1] * n * nb / HBM_BYTES_PER_S * 1e3
         r["library_ms"] = cuda_ms(library[name]) if name in library else None
         lib = KERNELS[name][2] + (f" {r['library_ms']:.4f} ms" if name in library else "")
@@ -261,7 +331,10 @@ def phase_kernels(gen: torch.Generator) -> dict:
 
 
 # (B, Sq, Sk, H, D, causal, window): tests/test_flash_kernel.py:12-19 first,
-# then ragged lengths, every head dim, bidirectional and windowed masks
+# then ragged lengths, every head dim, bidirectional and windowed masks; then
+# cases for the sm90 route (bf16 at D 64 and 128): ragged Sq and Sk, Sq != Sk
+# causal and not, a window over ragged tiles, and fully masked rows at D 64
+# (rows from 23 on see no key in the window)
 FLASH_CASES = [
     (2, 256, 256, 4, 128, True, 0), (1, 512, 512, 2, 128, False, 0),
     (2, 256, 256, 4, 128, True, 64), (1, 1024, 1024, 1, 128, True, 0),
@@ -270,6 +343,9 @@ FLASH_CASES = [
     (2, 300, 300, 4, 16, True, 0), (2, 300, 300, 4, 32, False, 0),
     (2, 300, 300, 4, 64, False, 64), (1, 200, 200, 2, 256, True, 64),
     (1, 70, 200, 2, 64, False, 0),
+    (2, 77, 77, 3, 128, True, 0), (1, 300, 170, 2, 64, True, 0),
+    (1, 170, 300, 2, 128, False, 0), (1, 260, 260, 2, 64, True, 64),
+    (1, 128, 16, 2, 64, False, 8),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_flash_kernel.py:33
 # (B, S) of the timed shapes, all bf16 causal at Qwen2-7B's 28 query heads of
@@ -281,18 +357,35 @@ FLASH_TIMED = ((4, 2032), (4, 512), (4, 2048))
 FLASH_H, FLASH_D = 28, 128
 
 
-def flash_checked(q, k, v, causal: bool, window: int = 0) -> tuple:
-    """(kernel output, max |kernel - plain version|) on the same inputs;
-    raises past the reference tests' rtol and atol for the inputs' dtype."""
+def flash_route(dtype, D: int) -> str:
+    """The route a new contiguous operand of this dtype and head dim takes."""
+    return "sm90" if dtype == torch.bfloat16 and D in fa.SM90_HEAD_DIMS else "simt"
+
+
+def held_to_plain(got, q, k, v, causal: bool, window: int = 0) -> float:
+    """max |got - plain version| on the same inputs; raises past the
+    reference tests' rtol and atol for the inputs' dtype."""
     tol = FLASH_TOL[q.dtype]
-    got = flash_attention(q, k, v, causal=causal, window=window)
     want = ref.mha_reference(q, k, v, causal=causal, window=window)
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     if not bool((diff <= tol + tol * want.float().abs()).all()):
         raise AssertionError(f"flash_attention q {tuple(q.shape)} k {tuple(k.shape)} "
                              f"causal={causal} window={window} {q.dtype}: max_abs_err {err}")
-    return got, err
+    return err
+
+
+def flash_checked(q, k, v, causal: bool, window: int = 0, *, route: str) -> tuple:
+    """(kernel output, max |kernel - plain version|) on the same inputs;
+    raises past the reference tests' rtol and atol, or if the call did not
+    launch exactly one kernel of ``route``."""
+    taken = fa.route(q, k, v)
+    before = fa.route_launches()[taken]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    if taken != route or fa.route_launches()[taken] != before + 1:
+        raise AssertionError(f"flash_attention q {tuple(q.shape)} {q.dtype} took route {taken} "
+                             f"({fa.route_launches()[taken] - before} launches), want {route}")
+    return got, held_to_plain(got, q, k, v, causal, window)
 
 
 def flash_bound(B: int, S: int, H: int, D: int) -> tuple:
@@ -306,43 +399,141 @@ def flash_bound(B: int, S: int, H: int, D: int) -> tuple:
 
 
 def phase_flash(gen: torch.Generator) -> dict:
-    """The flash kernel against its plain version; its times at the serving
-    path's shapes. Returns its report entry (the first timed shape's)."""
+    """Both flash kernels against their plain version; their times at the
+    serving path's shapes. Returns each route's report entry (the first timed
+    shape's) and the simt route's launches in this phase."""
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    bf16 = torch.bfloat16
+    fa.reset_route_launches()
     worst = {}
     for B, Sq, Sk, H, D, causal, window in FLASH_CASES:
         for dt in FLASH_TOL:
             q = torch.randn((B, Sq, H, D), generator=gen, device=DEVICE).to(dt)
             k, v = (torch.randn((B, Sk, H, D), generator=gen, device=DEVICE).to(dt)
                     for _ in range(2))
-            worst[dt] = max(worst.get(dt, 0.0), flash_checked(q, k, v, causal, window)[1])
-    log(f"kernel flash_attention: equal to its plain version at {len(FLASH_CASES)} shapes "
-        f"(D in {{16, 32, 64, 128, 256}}, ragged 33/1000, causal, bidirectional, window 64, "
-        f"Sq != Sk) in float32 (max_abs_err {worst[torch.float32]:.3e}, tolerance 2e-5) and "
-        f"bf16 (max_abs_err {worst[torch.bfloat16]:.3e}, tolerance 2e-2), as rtol and atol")
+            key = (str(dt).split(".")[-1], flash_route(dt, D))
+            worst[key] = max(worst.get(key, 0.0),
+                             flash_checked(q, k, v, causal, window, route=key[1])[1])
+    for D in fa.SM90_HEAD_DIMS:
+        # slices of one fused (B, S, 3H, D) projection, read in place by TMA;
+        # a slice 2 bytes off a 16-byte boundary, which no tensor map addresses
+        qkv = torch.randn((2, 130, 12, D), generator=gen, device=DEVICE).to(bf16)
+        err = flash_checked(qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:], True, route="sm90")[1]
+        worst[("bfloat16", "sm90")] = max(worst[("bfloat16", "sm90")], err)
+        buf = torch.randn((2, 130, 4, D + 8), generator=gen, device=DEVICE).to(bf16)
+        q = buf[..., 1:1 + D]
+        err = flash_checked(q, qkv[:, :, 4:8], qkv[:, :, 8:], True, route="simt")[1]
+        worst[("bfloat16", "simt")] = max(worst[("bfloat16", "simt")], err)
+    launches = fa.route_launches()
+    log(f"kernel flash_attention: both routes equal to their plain version at "
+        f"{len(FLASH_CASES)} shapes x 2 dtypes (D in {{16, 32, 64, 128, 256}}, ragged 33/77/1000, "
+        f"causal, bidirectional, window 64, Sq != Sk both ways, fully masked rows) and on "
+        f"fused-projection and misaligned slices; launches by route {launches}; max_abs_err "
+        + ", ".join(f"{dt} {r} {e:.3e}" for (dt, r), e in sorted(worst.items()))
+        + " (tolerance 2e-5 in float32, 2e-2 in bf16, as rtol and atol)")
 
-    report = None
+    reports = {}
     H, D = FLASH_H, FLASH_D
     for B, S in FLASH_TIMED:
-        q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(bf16)
                    for _ in range(3))
-        err = flash_checked(q, k, v, causal=True)[1]
+        calls = {"sm90": lambda: flash_attention(q, k, v, causal=True),
+                 "simt": lambda: fa._launch("simt", q, k, v, True, 0)}
+        errs = {"sm90": flash_checked(q, k, v, True, route="sm90")[1],
+                "simt": held_to_plain(calls["simt"](), q, k, v, True)}
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, S, D), same storage
-        r = {"max_abs_err": err, "shape": [B, S, H, D],
-             "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True)),
-             "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=True), iters=3),
-             "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True))}
-        r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D)
-        log(f"kernel flash_attention: {r['ms']:.4f} ms at B={B} S={S} H={H} D={D} bf16 causal "
-            f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} "
-            f"of it); plain version {r['plain_ms']:.4f} ms; library: "
-            f"torch.nn.functional.scaled_dot_product_attention {r['library_ms']:.4f} ms; "
-            f"max_abs_err {err:.3e} (tolerance 2e-2)")
-        report = report or r
+        shared = {"shape": [B, S, H, D],
+                  "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=True), iters=3),
+                  "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True))}
+        shared["bound_ms"], shared["bound_by"] = flash_bound(B, S, H, D)
+        for route, fn in calls.items():
+            r = {**shared, "max_abs_err": errs[route], "ms": cuda_ms(fn), "host_us": host_us(fn)}
+            log(f"kernel {FLASH[route]['name']} ({route}): {r['ms']:.4f} ms at B={B} S={S} H={H} "
+                f"D={D} bf16 causal (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                f"{r['bound_ms'] / r['ms']:.1%} of it); host {r['host_us']:.1f} us per wrapper call "
+                f"({'device' if r['ms'] * 1e3 >= r['host_us'] else 'host'} time sets the rate of "
+                f"back-to-back calls); plain version {r['plain_ms']:.4f} ms; library: "
+                f"{FLASH_LIBRARY} {r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.2f}x the "
+                f"kernel's speed); max_abs_err {r['max_abs_err']:.3e} (tolerance 2e-2)")
+            reports.setdefault(route, r)
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return report
+    reports["simt"]["launches"] = launches["simt"]
+    return reports
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def _kernel_name(mangled: str) -> str:
+    """flash_fwd_sm90_kernel<128>, flash_fwd_kernel<bf16,128,32>, ... from a
+    mangled flash kernel name; other names as they are."""
+    m = re.search(r"(flash_fwd\w*?_kernel)I(.+?)EEv", mangled)
+    if not m:
+        return mangled
+    args = ["bf16" if t.group(0).startswith("13") else "f32" if t.group(0) == "f" else t.group(1)
+            for t in re.finditer(r"13__nv_bfloat16|Li(\d+)E|f", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def _cuobjdump():
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "cuobjdump")
+    return path if os.path.exists(path) else None
+
+
+def flash_build_report() -> dict:
+    """Per flash kernel instance: registers and spilled bytes (from the build's
+    ``-Xptxas -v``) and HGMMA instructions in its SASS (``cuobjdump -sass``).
+    Raises if the sm90 kernel holds no HGMMA."""
+    info = {}
+    for src, text in _build.build_log().items():
+        if not src.startswith("flash_attention"):
+            continue
+        name = None
+        for line in text.splitlines():
+            if (m := _PTXAS_ENTRY.search(line)):
+                name = _kernel_name(m.group(1))
+                info[name] = {"registers": None, "spill_stores": None, "spill_loads": None,
+                              "hgmma": None}
+            elif name and (m := _PTXAS_SPILL.search(line)):
+                info[name]["spill_stores"], info[name]["spill_loads"] = map(int, m.groups())
+            elif name and (m := _PTXAS_REGS.search(line)):
+                info[name]["registers"] = int(m.group(1))
+    tool = _cuobjdump()
+    sass = None
+    if tool:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                              text=True, check=True).stdout
+        name = None
+        for line in sass.splitlines():
+            if (m := re.search(r"Function : (\S+)", line)):
+                name = _kernel_name(m.group(1))
+                if name.startswith("flash_fwd"):
+                    info.setdefault(name, {"registers": None, "spill_stores": None,
+                                           "spill_loads": None})["hgmma"] = 0
+                else:
+                    name = None
+            elif name and "HGMMA" in line:
+                info[name]["hgmma"] += 1
+    for name, r in sorted(info.items()):
+        regs = ("not captured (the library was built by an earlier process)"
+                if r["registers"] is None else
+                f"{r['registers']} registers, spills {r['spill_stores']} bytes stored, "
+                f"{r['spill_loads']} bytes loaded")
+        hg = "not available (no cuobjdump)" if r["hgmma"] is None else r["hgmma"]
+        log(f"build: {name}: {regs}; HGMMA instructions in its SASS: {hg}")
+    if sass is not None:
+        sm90 = [r["hgmma"] for n, r in info.items() if n.startswith("flash_fwd_sm90")]
+        if not sm90 or min(sm90) == 0:
+            raise AssertionError(f"the sm90 flash kernel holds no HGMMA instruction: {info}")
+    return info
 
 
 # ---------------------------------------------------------------------------
@@ -675,13 +866,15 @@ def phase_serve(tmp: str, seed: int) -> tuple:
     prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in SERVE_PROMPTS]
     # the main path: counts from 0 just before, read just after
     _build.reset_launch_counts()
+    fa.reset_route_launches()
     toks, prefill, decode, wall = _serve(engine, prompts)
     launches = _build.launch_counts()["flash_attention"]
+    routes = fa.route_launches()
     peak = torch.cuda.max_memory_allocated()
     n_prefills = -(-len(prompts) // SERVE_BATCH)
-    if launches != SERVE_LAYERS * n_prefills:
-        raise AssertionError(f"serve: {launches} flash launches, want {SERVE_LAYERS} layers x "
-                             f"{n_prefills} prefills")
+    if launches != SERVE_LAYERS * n_prefills or routes != {"sm90": launches, "simt": 0}:
+        raise AssertionError(f"serve: {launches} flash launches (by route {routes}), want "
+                             f"{SERVE_LAYERS} layers x {n_prefills} prefills, all sm90")
     for t in toks:
         if t.shape != (SERVE_NEW,) or not ((0 <= t) & (t < cfg.vocab)).all():
             raise AssertionError(f"serve: bad generated tokens {t}")
@@ -695,7 +888,7 @@ def phase_serve(tmp: str, seed: int) -> tuple:
     path_errs = []
 
     def checked(q, k, v, *, causal, window):
-        got, err = flash_checked(q, k, v, causal, window)
+        got, err = flash_checked(q, k, v, causal, window, route="sm90")
         path_errs.append((tuple(q.shape), err))
         return got
 
@@ -707,9 +900,10 @@ def phase_serve(tmp: str, seed: int) -> tuple:
     if len(path_errs) != launches:
         raise AssertionError(f"serve: {len(path_errs)} flash calls checked, {launches} launched")
     path_err = max(e for _, e in path_errs)
-    log(f"serve: each of the {len(path_errs)} flash calls of the serving run equal to its plain "
-        f"version on its own inputs (q shapes {sorted(set(s for s, _ in path_errs))}, bf16, "
-        f"causal; max_abs_err {path_err:.3e}, tolerance 2e-2 as rtol and atol)")
+    log(f"serve: each of the {len(path_errs)} flash calls of the serving run took the sm90 route "
+        f"and equals its plain version on its own inputs (q shapes "
+        f"{sorted(set(s for s, _ in path_errs))}, bf16, causal; max_abs_err {path_err:.3e}, "
+        f"tolerance 2e-2 as rtol and atol)")
 
     plain = ServeEngine(cfg, engine.params, device=DEVICE, attn="plain")
     before = _build.launch_counts()["flash_attention"]
@@ -744,7 +938,8 @@ def phase_serve(tmp: str, seed: int) -> tuple:
         f"prefill {', '.join(f'{x:.2f}' for x in pre_ms)} ms per batch; decode "
         f"{dec_ms:.3f} ms per step ({len(decode.seconds)} steps, one token for each of "
         f"{SERVE_BATCH} rows); peak device memory {peak / 2**30:.2f} GiB; flash launches "
-        f"{launches} ({SERVE_LAYERS} layers x {n_prefills} prefills, none in decode)")
+        f"{launches} ({SERVE_LAYERS} layers x {n_prefills} prefills, none in decode; by route "
+        f"{routes})")
     log(f"serve: prefill logits (max |logit| {scale:.3f}) against the float32 model's, max_abs_err "
         f"per batch: flash engine {', '.join(f'{e:.4e}' for e in drift['flash'])}, plain engine "
         f"{', '.join(f'{e:.4e}' for e in drift['plain'])} (allowed for flash: {SERVE_DRIFT}x the "
@@ -770,10 +965,11 @@ def main() -> int:
     log(f"build: {', '.join(str(p.relative_to(Path(__file__).resolve().parent)) for p in _build.SOURCES)} "
         f"compiled and loaded in {_build.build_seconds():.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    build_info = flash_build_report()
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     report = phase_kernels(gen)
-    report["flash_attention"] = phase_flash(gen)
+    flash_reports = phase_flash(gen)
     tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-")
     try:
         launches = phase_store(tmp, SEED)
@@ -794,7 +990,9 @@ def main() -> int:
     log(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     launched_by = {"hamming": "phases 4b and 6 (bit distance, calibration)",
-                   "xor": "phase 3 (kernel checks): no path of the JAX package calls xor_2d"}
+                   "xor": "phase 3 (kernel checks): no path of the JAX package calls xor_2d",
+                   "flash_attention": "phase 3 (kernel checks): every flash call of the serving "
+                                      "run takes the sm90 route"}
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
         r = report[name]
@@ -807,15 +1005,20 @@ def main() -> int:
             "library": KERNELS[name][2],
             "card": smi,
         })
-    r = report["flash_attention"]
-    kernels.append({
-        **{k: FLASH[k] for k in ("name", "route", "source", "replaces")},
-        "launches": launches["flash_attention"], "launched_by": "phase 7 (serve)",
-        "matched": True, "max_abs_err": max(r["max_abs_err"], path_err), "shape": r["shape"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library": FLASH["library"],
-        "card": smi,
-    })
+    # the path's kernel instance of each route: D 128 in bf16
+    instance = {"sm90": "flash_fwd_sm90_kernel<128>", "simt": "flash_fwd_kernel<bf16,128,32>"}
+    for route, r in flash_reports.items():
+        kernels.append({
+            **{k: FLASH[route][k] for k in ("name", "source")}, "route": "cuda",
+            "replaces": FLASH_REPLACES, "flash_route": route,
+            "launches": launches["flash_attention"] if route == "sm90" else r["launches"],
+            "launched_by": "phase 7 (serve)" if route == "sm90" else launched_by["flash_attention"],
+            "matched": True,
+            "max_abs_err": max(r["max_abs_err"], path_err) if route == "sm90" else r["max_abs_err"],
+            "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library": FLASH_LIBRARY,
+            "host_us": r["host_us"], **build_info.get(instance[route], {}), "card": smi,
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

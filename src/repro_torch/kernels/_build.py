@@ -13,7 +13,11 @@ PyTorch versions.
 Launch counts live here too: each wrapper calls :func:`launch` (the storage
 kernels' ``(*tensors, n, nb)`` convention) or :func:`launch_args` (any other
 launcher, such as flash attention's), which count one launch per kernel call
-that actually reached the card.
+that actually reached the card. A launcher that is a second route of a kernel
+(``zllm_flash_attention_sm90``) counts under that kernel's name.
+
+``nvcc`` runs with ``-Xptxas -v``; :func:`build_log` keeps what each source's
+compile printed (registers, shared memory and spills of every kernel).
 """
 
 from __future__ import annotations
@@ -30,15 +34,16 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["BUILD_DIR", "KERNELS", "SOURCES", "NVCC_FLAGS", "library", "build_seconds",
-           "check_bytes", "check_pair", "grid", "launch", "launch_args", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["BUILD_DIR", "KERNELS", "SOURCES", "NVCC_FLAGS", "library", "library_path",
+           "build_seconds", "build_log", "check_bytes", "check_pair", "grid", "launch",
+           "launch_args", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "planes.cu", _PKG / "csrc" / "flash_attention.cu")
+SOURCES = (_PKG / "csrc" / "planes.cu", _PKG / "csrc" / "flash_attention.cu",
+           _PKG / "csrc" / "flash_attention_sm90.cu")
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures of the launchers in csrc/planes.cu: pointers (inputs, then
 # outputs), then the word count n (int64), the word width nb (int) and the
@@ -55,10 +60,14 @@ _SIGNATURES = {
     # strides of q, k, v and o; causal, window, dtype code; the stream
     "flash_attention": (_P,) * 4 + (_N,) * 5 + (_N,) * 12 + (_NB,) * 3 + (_P,),
 }
+# launchers that are a second route of a kernel above: same signature, counted
+# under that kernel's name (csrc/flash_attention_sm90.cu)
+_COUNTED_AS = {"flash_attention_sm90": "flash_attention"}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_seconds: Optional[float] = None
+_build_log: Dict[str, str] = {}
 KERNELS = tuple(_SIGNATURES)
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -75,7 +84,8 @@ def _nvcc() -> str:
     return path
 
 
-def _library_path() -> Path:
+def library_path() -> Path:
+    """Where the library built from the present sources and flags lives."""
     h = hashlib.sha256()
     for src in SOURCES:
         h.update(src.read_bytes())
@@ -83,17 +93,20 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libzllm_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds) -> None:
-    """Run the commands as concurrent processes; raise on the first failure."""
+def _run_all(cmds) -> list:
+    """Run the commands as concurrent processes; raise on the first failure.
+    Returns what each printed."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True)) for cmd in cmds]
-    failed = []
+    failed, outs = [], []
     for cmd, proc in procs:
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def _compile(out: Path) -> None:
@@ -103,8 +116,9 @@ def _compile(out: Path) -> None:
     objs = [out.with_name(f"{src.stem}.{out.stem}.{tag}.o") for src in SOURCES]
     tmp = out.with_name(f"{out.name}.{tag}.tmp")
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                  for src, obj in zip(SOURCES, objs)])
+        outs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(SOURCES, objs)])
+        _build_log.update((src.name, out) for src, out in zip(SOURCES, outs))
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)
     finally:
@@ -118,11 +132,13 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             t0 = time.perf_counter()
-            path = _library_path()
+            path = library_path()
             if not path.exists():
                 _compile(path)
             lib = ctypes.CDLL(str(path))
-            for kernel, argtypes in _SIGNATURES.items():
+            launchers = {**_SIGNATURES,
+                         **{k: _SIGNATURES[kernel] for k, kernel in _COUNTED_AS.items()}}
+            for kernel, argtypes in launchers.items():
                 fn = getattr(lib, f"zllm_{kernel}")
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
@@ -138,6 +154,12 @@ def library() -> ctypes.CDLL:
 def build_seconds() -> Optional[float]:
     """Seconds the first :func:`library` call took (compile + load), or None."""
     return _build_seconds
+
+
+def build_log() -> Dict[str, str]:
+    """What ``nvcc -Xptxas -v`` printed per source file name, if this process
+    compiled the library (empty when it loaded a built one)."""
+    return dict(_build_log)
 
 
 def check_bytes(t: torch.Tensor, nb: int, what: str) -> int:
@@ -184,7 +206,7 @@ def launch(kernel: str, *tensors: torch.Tensor, n: int, nb: int) -> None:
 def launch_args(kernel: str, device: torch.device, *args) -> None:
     """Call the launcher ``zllm_<kernel>`` with ``args`` and then the current
     stream of ``device``; raise on a non-zero ``cudaError_t``. Counts one
-    launch."""
+    launch (a second route under its kernel's name)."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -193,7 +215,7 @@ def launch_args(kernel: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err} "
                            f"({lib.zllm_error_string(err).decode()})")
     with _lock:
-        _launches[kernel] += 1
+        _launches[_COUNTED_AS.get(kernel, kernel)] += 1
 
 
 def launch_counts() -> Dict[str, int]:

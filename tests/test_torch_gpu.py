@@ -1,7 +1,8 @@
 """The kernels of the port on the card against their plain PyTorch versions
-(the six storage kernels byte for byte, the bit counts exactly; flash
-attention within the reference's tolerances), the device store path, the
-bit-distance calibration and the serving engine on the card.
+(the six storage kernels byte for byte, the bit counts exactly; both routes of
+flash attention within the reference's tolerances, each call asserting the
+route it took), the device store path, the bit-distance calibration and the
+serving engine on the card.
 
 Run on a machine with a CUDA card:
 
@@ -95,6 +96,27 @@ def test_bit_distance_kernels_match_plain_versions(cuda, nb, n):
     assert want == int(np.unpackbits(np.bitwise_xor(a.cpu().numpy(), b.cpu().numpy())).sum())
     assert after["xor"] - before["xor"] == (1 if n else 0)
     assert after["hamming"] - before["hamming"] == (2 if n else 0)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, (1 << 20) + 3])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (15, 15, 15), (1, 0, 0), (0, 3, 7),
+                                     (5, 5, 2)])
+def test_xor_is_exact_on_misaligned_and_odd_lengths(cuda, n, offsets):
+    """The word XOR streams bytes: 16-byte vectors where a, b and out share
+    their offset from a 16-byte boundary (scalar head and tail), single bytes
+    where they do not. Every byte equals the plain version's."""
+    oa, ob, oo = offsets
+    a, b = _rand_bytes(n + 16, 12, cuda), _rand_bytes(n + 16, 13, cuda)
+    x, y = a[oa:oa + n], b[ob:ob + n]
+    want = ref.xor_words(x, y)
+    before = _build.launch_counts()["xor"]
+    assert torch.equal(bitx_xor.xor(x, y, 1), want)  # into a new, aligned buffer
+    out = torch.zeros(n + 32, dtype=torch.uint8, device=cuda)
+    _build.launch("xor", x, y, out[oo:oo + n], n=n, nb=1)  # into one at offset oo
+    torch.cuda.synchronize()
+    assert torch.equal(out[oo:oo + n], want)
+    assert not out[:oo].any() and not out[oo + n:].any()  # nothing written outside
+    assert _build.launch_counts()["xor"] - before == 2
 
 
 def test_hamming_total_past_two_to_the_32(cuda):
@@ -215,6 +237,13 @@ FLASH_CASES = [
     (1, 300, 300, 4, 64, False, 64),
     (1, 70, 200, 2, 64, False, 0),
     (1, 128, 16, 2, 32, False, 8),
+    # the sm90 route in bf16 (D 64 and 128): ragged lengths, Sq != Sk causal
+    # and not, a window over ragged tiles, fully masked rows at D 64
+    (2, 77, 77, 3, 128, True, 0),
+    (1, 300, 170, 2, 64, True, 0),
+    (1, 170, 300, 2, 128, False, 0),
+    (1, 260, 260, 2, 64, True, 64),
+    (1, 128, 16, 2, 64, False, 8),
     # the serving path's prefills: Qwen2-7B's 28 heads of dim 128, batches of
     # 4 left-padded to 2032 (not a multiple of either tile) and to 512 tokens
     (4, 2032, 2032, 28, 128, True, 0),
@@ -234,10 +263,16 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, Sq, Sk, H, D, causal, window = case
     q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), dtype, 20, cuda)
+    # contiguous new tensors: bf16 at D 64/128 takes the tensor cores
+    route = "sm90" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    assert flash_attention.route(q, k, v) == route
     before = _build.launch_counts()["flash_attention"]
+    by_route = flash_attention.route_launches()
     got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert _build.launch_counts()["flash_attention"] - before == 1
+    after = flash_attention.route_launches()
+    assert {r: after[r] - by_route[r] for r in after} == {r: int(r == route) for r in after}
     want = ref.mha_reference(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == (B, Sq, H, D)
     tol = 2e-5 if dtype == torch.float32 else 2e-2  # tests/test_flash_kernel.py:33
@@ -252,7 +287,26 @@ def test_flash_attention_reads_strided_operands(cuda):
                       device=cuda).to(torch.bfloat16)
     q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
     assert not q.is_contiguous()
+    assert flash_attention.route(q, k, v) == "sm90"  # TMA reads the slices in place
     got = flash_attention.flash_attention(q, k, v, causal=True)
+    want = ref.mha_reference(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_misaligned_slice_takes_simt(cuda, D):
+    """A bf16 operand 2 bytes off a 16-byte boundary is one no tensor map can
+    address: the call takes the SIMT kernel and is still right."""
+    B, S, H = 2, 130, 4
+    buf = torch.randn((B, S, H, D + 8), generator=torch.Generator(device="cuda").manual_seed(22),
+                      device=cuda).to(torch.bfloat16)
+    q = buf[..., 1:1 + D]
+    k, v = (torch.randn((B, S, H, D), device=cuda).to(torch.bfloat16) for _ in range(2))
+    assert q.data_ptr() % 16 == 2 and flash_attention.route(q, k, v) == "simt"
+    before = flash_attention.route_launches()
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches()["simt"] - before["simt"] == 1
     want = ref.mha_reference(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
@@ -284,10 +338,14 @@ def test_serve_engine_on_card(cuda):
     # bf16 activations rounded at other points in the two attentions
     torch.testing.assert_close(lf, lp, rtol=0.05, atol=0.05)
     _build.reset_launch_counts()
+    flash_attention.reset_route_launches()
     batcher = RequestBatcher(flash, batch_size=4, n_new=5)
     ids = [batcher.submit(p[: 10 + 7 * i]) for i, p in enumerate(prompts)]
     assert sorted(batcher.run_once()) == ids
     assert _build.launch_counts()["flash_attention"] == cfg.n_layers
+    # the smoke config's head dim is 16: every call takes the SIMT kernel
+    assert cfg.hd == 16
+    assert flash_attention.route_launches() == {"sm90": 0, "simt": cfg.n_layers}
     for rid in ids:
         out = batcher.result(rid)
         assert out.shape == (5,) and ((0 <= out) & (out < cfg.vocab)).all()
