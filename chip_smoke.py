@@ -48,7 +48,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    requests are then served again with each flash call held against its plain
    version on its own inputs, and the prefill logits of the flash and plain
    attention engines are held to the float32 model's. Every flash call of the
-   serving run takes the ``sm90`` route.
+   serving run takes the ``sm90`` route;
+8. hub server: phase 7's store (index saved, closed) served by
+   ``python -m repro_torch.serve.store_server --root <store> --port 0`` as a
+   process of its own, its store on the card. Ranged tensor GETs of the
+   fine-tune (the embedding's last MiB, a q_proj slice, the whole k_proj) and
+   of a base tensor (ZipNN lane), each its tensor's first decode and required
+   to launch; eight concurrent ranged GETs over distinct tensors and four of
+   one tensor (single-flight); 64 ranged GETs from the decoded cache; a second
+   fine-tune of the same base (every tensor moved by N(0, 0.005^2)) PUT over
+   HTTP, its ingest job polled to the end, its three BitX reads and a
+   whole-file GET whose sha256 equals the upload's. Every byte is held against
+   its source file. ``/stats`` must show ``cuda:0`` and launches of
+   ``xor_split``, ``merge_xor`` and ``merge`` in the server; the server must
+   load phase 2's kernel library without rebuilding it and exit 0 on SIGINT.
+   PUT and GET MB/s, ranged-GET latency, the server's launches, bytes and
+   device memory are printed beside the card's name and power limit, and on a
+   JSON line of their own (``hub_server``).
 
 Phase 3 also holds both flash-attention kernels (routes ``sm90`` and ``simt``)
 against their plain version (``ref.mha_reference``) at the reference tests'
@@ -60,7 +76,8 @@ causal) and at S 2048, beside their bound, the plain version and
 ``torch.nn.functional.scaled_dot_product_attention``, with the wrapper's host
 time per call.
 
-The last two lines are the kernels line (one JSON object) and the result line
+The last lines are the hub server's line, the card's name and power limit,
+the kernels line (one JSON object) and the result line
 ``{"ok": true, "device": {...}}``. Model files and stores go to a temporary
 directory outside the repository, removed at the end.
 """
@@ -72,13 +89,18 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+import concurrent.futures  # noqa: E402
 import dataclasses  # noqa: E402
 import hashlib  # noqa: E402
+import http.client  # noqa: E402
 import json  # noqa: E402
+import queue  # noqa: E402
 import re  # noqa: E402
 import shutil  # noqa: E402
+import signal  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
+import threading  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -134,7 +156,8 @@ FLASH = {
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:99"
 FLASH_LIBRARY = "torch.nn.functional.scaled_dot_product_attention"
 
-# the serving run of phase 7
+# the serving run of phase 7 (its store is phase 8's)
+SERVE_REPOS = ("qwen/base-serve", "alice/ft-serve")  # base, fine-tune declaring it
 SERVE_LAYERS = 4
 SERVE_PROMPTS = (2032, 1500, 1024, 700, 512, 300, 128, 33)
 SERVE_BATCH, SERVE_NEW = 4, 16
@@ -817,7 +840,7 @@ def phase_serve(tmp: str, seed: int) -> tuple:
         f"{cfg.param_dtype}); depth cut from {qwen2_7b.CONFIG.n_layers} decoder layers to "
         f"{cfg.n_layers}, full-vocabulary embed and lm_head kept")
     hub = os.path.join(tmp, "hub")
-    base_id, ft_id = "qwen/base-serve", "alice/ft-serve"
+    base_id, ft_id = SERVE_REPOS
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
     t0 = time.perf_counter()
     base = init_params(cfg, gen)
@@ -841,7 +864,10 @@ def phase_serve(tmp: str, seed: int) -> tuple:
         t_ingest = time.perf_counter() - t0
         if not (res.base_id == base_id and res.n_bitx > 0):
             raise AssertionError(f"serve: the fine-tune was not BitX-coded against its base: {res}")
-        shutil.rmtree(hub)
+        store.save_index()  # phase 8's server opens this store from its index
+        # the cold start reads the store alone: the sources leave the paths the
+        # store recorded (phase 8 puts them back, to compare its reads with)
+        os.rename(hub, hub + "-sources")
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         engine = ServeEngine.from_store(store, ft_id, "model.safetensors", cfg, device=DEVICE)
@@ -948,6 +974,379 @@ def phase_serve(tmp: str, seed: int) -> tuple:
     return launches, path_err
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the HTTP hub server, a process of its own, over phase 7's store
+# ---------------------------------------------------------------------------
+
+HUB_SERVER = ("-m", "repro_torch.serve.store_server")  # the entry point a hub operator runs
+HUB_DEVICE = "cuda:0"           # where its store's backend must run
+HUB_FT2 = "carol/ft-serve-put"  # the second fine-tune of phase 7's base, PUT over HTTP
+HUB_STARTUP_S = 180             # the server must print its address within this
+HUB_JOB_S = 900                 # ... and finish the PUT's ingest job within this
+HUB_DISTINCT = 8                # concurrent ranged GETs over distinct tensors
+HUB_SAME = 4                    # concurrent GETs of one tensor (single-flight)
+HUB_WARM = 64                   # ranged GETs of one cached tensor
+MIB = 1 << 20
+_SERVING = re.compile(r"serving .* on http://([0-9.]+):(\d+)")
+# the three BitX reads of each fine-tune, (tensor, window as _window takes
+# it): the embedding's last MiB, a slice of q_proj, the whole k_proj (all four
+# layers, stacked)
+HUB_BITX_READS = (("params/embed", "last MiB"), ("params/blocks.wq", "slice"),
+                  ("params/blocks.wk", None))
+HUB_BASE_READ = "params/blocks.w_up"  # a base tensor: the ZipNN lane
+HUB_DISTINCT_READS = ("params/blocks.wo", "params/blocks.wv", "params/blocks.w_gate",
+                      "params/blocks.w_down", "params/lm_head", "params/blocks.bq",
+                      "params/blocks.attn_norm", "params/final_norm")
+HUB_SAME_READ = "params/blocks.w_up"
+
+
+class HubServer:
+    """``python -m repro_torch.serve.store_server`` as a child process: its
+    standard output is read for the address it binds, its standard error goes
+    to a file whose tail is part of every failure."""
+
+    def __init__(self, root: str, workers: int, log_path: str):
+        here = Path(__file__).resolve().parent
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(here / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, *HUB_SERVER, "--root", root, "--port", "0",
+             "--store-workers", str(workers)],
+            stdout=subprocess.PIPE, stderr=self._log, text=True, env=env, cwd=str(here))
+        self._lines: "queue.Queue" = queue.Queue()
+        self.stdout: list = []
+        threading.Thread(target=self._pump, daemon=True).start()
+        deadline = t0 + HUB_STARTUP_S
+        try:
+            while True:
+                try:
+                    line = self._lines.get(timeout=max(0.1, deadline - time.perf_counter()))
+                except queue.Empty:
+                    self.fail(f"printed no address within {HUB_STARTUP_S} s")
+                if line is None:
+                    self.fail("exited before serving")
+                m = _SERVING.search(line)
+                if m:
+                    break
+        except BaseException:
+            self.kill()
+            raise
+        self.startup_s = time.perf_counter() - t0
+        self.host, self.port = m.group(1), int(m.group(2))
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            self.stdout.append(line)
+            self._lines.put(line)
+        self._lines.put(None)
+
+    def fail(self, what: str):
+        if not self._log.closed:
+            self._log.flush()
+        with open(self.log_path) as f:
+            err = f.read()[-6000:]
+        raise AssertionError(f"hub server (pid {self.proc.pid}, exit code {self.proc.poll()}): "
+                             f"{what}\n--- its stdout ---\n{''.join(self.stdout)}"
+                             f"--- its stderr (tail) ---\n{err}")
+
+    def alive(self) -> None:
+        if self.proc.poll() is not None:
+            self.fail("died")
+
+    def stop(self) -> int:
+        """SIGINT, as an operator's Ctrl-C; returns the exit code."""
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            return self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.fail("still running 120 s after SIGINT")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._log.close()
+
+
+def _http(server: HubServer, method: str, path: str, headers=None, body=None, sink=None):
+    """One request on a fresh connection: (status, headers, body, seconds).
+    With ``sink``, the body streams into ``sink(chunk)`` and comes back empty."""
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=900, blocksize=8 * MIB)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        if sink is None:
+            data = r.read()
+        else:
+            data = b""
+            for chunk in iter(lambda: r.read(8 * MIB), b""):
+                sink(chunk)
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data, time.perf_counter() - t0
+    except (OSError, http.client.HTTPException) as e:
+        server.fail(f"{method} {path} failed: {e!r}")
+    finally:
+        conn.close()
+
+
+def _stats(server: HubServer) -> dict:
+    status, _, body, _ = _http(server, "GET", "/stats")
+    if status != 200:
+        server.fail(f"/stats answered {status}")
+    return json.loads(body)
+
+
+def _calls(stats: dict) -> dict:
+    return stats["store"]["backend_counters"]["kernel_calls"]
+
+
+def _window(nbytes: int, how) -> tuple:
+    """[lo, hi) of a tensor's bytes: None is the whole tensor, "last MiB" its
+    last MiB, "slice" 4 MiB from a third of the way in, a fraction f the MiB
+    from f of the way in."""
+    if how is None:
+        return 0, nbytes
+    if how == "last MiB":
+        return nbytes - min(MIB, nbytes), nbytes
+    if how == "slice":
+        lo = nbytes // 3
+        return lo, min(nbytes, lo + 4 * MIB)
+    lo = int(nbytes * how)
+    return lo, min(nbytes, lo + MIB)
+
+
+def _ranged(server: HubServer, sources: dict, repo: str, name: str, how) -> dict:
+    """GET one tensor's window of ``repo`` and hold it against the source
+    file's bytes; returns the read's codec, size and latency."""
+    src = sources[repo]
+    want_all = src.tensor_bytes(name)
+    lo, hi = _window(len(want_all), how)
+    whole = (lo, hi) == (0, len(want_all))
+    status, h, body, secs = _http(server, "GET", f"/repo/{repo}/tensor/{name}",
+                                  None if whole else {"Range": f"bytes={lo}-{hi - 1}"})
+    if status != (200 if whole else 206) or body != bytes(want_all[lo:hi]):
+        server.fail(f"GET {repo} {name} [{lo}:{hi}] gave {status} and {len(body)} bytes that "
+                    f"are not the source file's")
+    return {"repo": repo, "name": name, "bytes": hi - lo, "codec": h.get("x-tensor-codec"),
+            "seconds": secs}
+
+
+def _due(server: HubServer, before: dict, after: dict, kernels, what: str) -> None:
+    """A read or write that had to decode or encode on the card launched."""
+    for k in kernels:
+        if after[k] <= before[k]:
+            server.fail(f"{what} ran without a {k} launch (kernel calls {before} -> {after})")
+
+
+def _gpu_used_mib() -> int:
+    """Device memory in use on card 0, all processes, in MiB (``nvidia-smi``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return int(out.split()[0])
+
+
+def _pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def phase_hub(tmp: str, seed: int, smi: str) -> dict:
+    """Serve phase 7's store from ``python -m repro_torch.serve.store_server``
+    in a process of its own: ranged tensor GETs (BitX and ZipNN lanes,
+    concurrent over distinct tensors and single-flighted over one), a PUT of a
+    second 4-layer Qwen2-7B-width fine-tune and a whole-file GET of it, every
+    byte held against its source. Returns the server's counts."""
+    cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=SERVE_LAYERS)
+    base_id, ft_id = SERVE_REPOS
+    hub, root = os.path.join(tmp, "hub"), os.path.join(tmp, "store")
+    os.rename(hub + "-sources", hub)  # back where the store recorded its base
+    path = lambda rid: os.path.join(hub, rid, "model.safetensors")  # noqa: E731
+    lib = _build.library_path()
+    lib_before = os.stat(lib)
+
+    # the second fine-tune: phase 7's base drawn again from its seed, every
+    # tensor moved by N(0, 0.005^2), declaring that base
+    t0 = time.perf_counter()
+    base = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed + 3))
+    with SafetensorsFile(path(base_id)) as sf:
+        for name in ("params/final_norm", "params/blocks.bk", "params/blocks.wk"):
+            got = base[name.removeprefix("params/")].view(torch.int16).cpu().numpy().view(np.uint16)
+            if not np.array_equal(got, sf.tensor(name)):
+                raise AssertionError(f"hub: {name} drawn again differs from phase 7's base")
+    ft2 = make_finetune(base, CorpusSpec(untouched_prob=0.0),
+                        torch.Generator(device=DEVICE).manual_seed(seed + 4))
+    write_repo(hub, HUB_FT2, {f"params/{k}": v for k, v in ft2.items()}, base_model=base_id)
+    del base, ft2
+    torch.cuda.empty_cache()
+    size2 = os.path.getsize(path(HUB_FT2))
+    want_sha2 = sha256_file(path(HUB_FT2))
+    log(f"hub: wrote the second fine-tune {HUB_FT2} of {base_id} ({size2 / 1e9:.3f} GB, every "
+        f"tensor moved by N(0, 0.005^2)) in {time.perf_counter() - t0:.1f} s")
+
+    sources = {rid: SafetensorsFile(path(rid)) for rid in (base_id, ft_id, HUB_FT2)}
+    workers = min(16, os.cpu_count() or 1)
+    used_before = _gpu_used_mib()
+    server = HubServer(root, workers, os.path.join(tmp, "hub-server.stderr"))
+    cold, warm = [], []
+    try:
+        stats = _stats(server)
+        c = stats["store"]["backend_counters"]
+        if c.get("device") != HUB_DEVICE or stats["store"]["n_files"] != 2 or any(_calls(stats).values()):
+            server.fail(f"started on {c.get('device')} with {stats['store']['n_files']} files and "
+                        f"kernel calls {_calls(stats)}; want {HUB_DEVICE}, phase 7's 2 files, none yet")
+        log(f"hub: server pid {server.proc.pid} serving {root} on http://{server.host}:"
+            f"{server.port} after {server.startup_s:.2f} s (process start, imports, index load; "
+            f"store workers {workers}); backend {c['device']}")
+
+        # cold ranged reads of the phase-7 fine-tune, then of a base tensor:
+        # each is its tensor's first decode in this process, so it must launch
+        for name, how in HUB_BITX_READS:
+            before = _calls(_stats(server))
+            r = _ranged(server, sources, ft_id, name, how)
+            after = _calls(_stats(server))
+            _due(server, before, after, ["merge_xor"] if r["codec"] == "bitx" else ["merge"],
+                 f"GET {ft_id} {name} ({r['codec']})")
+            cold.append(r)
+        before = _calls(_stats(server))
+        r = _ranged(server, sources, base_id, HUB_BASE_READ, 0.5)
+        _due(server, before, _calls(_stats(server)), ["merge"], f"GET {base_id} {HUB_BASE_READ}")
+        if r["codec"] != "zipnn":
+            server.fail(f"{base_id} {HUB_BASE_READ} served from codec {r['codec']}, not zipnn")
+        cold.append(r)
+
+        # warm: 1 MiB windows of the k_proj read whole above, from the decoded cache
+        before = _calls(_stats(server))
+        rng = np.random.default_rng(seed)
+        for f in rng.random(HUB_WARM):
+            warm.append(_ranged(server, sources, ft_id, "params/blocks.wk", float(f) * 0.9)["seconds"])
+        warm_calls = sum(_calls(_stats(server)).values()) - sum(before.values())
+
+        # concurrent: distinct tensors, then one tensor (single-flight)
+        before = _stats(server)
+        with concurrent.futures.ThreadPoolExecutor(HUB_DISTINCT) as pool:
+            rs = list(pool.map(lambda n: _ranged(server, sources, ft_id, n, 0.5),
+                               HUB_DISTINCT_READS))
+        mid = _stats(server)
+        _due(server, _calls(before), _calls(mid),
+             ["merge_xor"] if any(r["codec"] == "bitx" for r in rs) else ["merge"],
+             f"{HUB_DISTINCT} concurrent GETs of distinct tensors")
+        cold += rs
+        with concurrent.futures.ThreadPoolExecutor(HUB_SAME) as pool:
+            same = list(pool.map(lambda f: _ranged(server, sources, ft_id, HUB_SAME_READ, f),
+                                 [i / HUB_SAME for i in range(HUB_SAME)]))
+        after = _stats(server)
+        sf0, sf1 = mid["server"]["singleflight"], after["server"]["singleflight"]
+        leaders, joined = sf1["leaders"] - sf0["leaders"], sf1["joined"] - sf0["joined"]
+        if joined < 1:
+            server.fail(f"{HUB_SAME} concurrent GETs of {HUB_SAME_READ} decoded {leaders} times "
+                        f"and shared no flight")
+        cold += same
+        log(f"hub: {len(rs)} concurrent ranged GETs over distinct tensors and {HUB_SAME} of "
+            f"{HUB_SAME_READ} (single-flight: {leaders} decode, {joined} joined) equal the source")
+
+        # remote write: PUT the second fine-tune, poll its ingest job
+        before = _calls(_stats(server))
+        t0 = time.perf_counter()
+        with open(path(HUB_FT2), "rb") as body:
+            status, _, out, t_upload = _http(
+                server, "PUT", f"/repo/{HUB_FT2}/file/model.safetensors?base={base_id}",
+                headers={"content-length": str(size2)}, body=body)
+        if status != 202:
+            server.fail(f"PUT answered {status}: {out[:2000]!r}")
+        job_id = json.loads(out)["job_id"]
+        while True:
+            server.alive()
+            _, _, out, _ = _http(server, "GET", f"/admin/jobs?job={job_id}")
+            job = json.loads(out)
+            if job["state"] in ("done", "failed"):
+                break
+            if time.perf_counter() - t0 > HUB_JOB_S:
+                server.fail(f"ingest job {job_id} not done after {HUB_JOB_S} s: {job}")
+            time.sleep(0.5)
+        t_put = time.perf_counter() - t0
+        res = (job.get("results") or [{}])[0]
+        n_tensors = len(sources[HUB_FT2].names())
+        if job["state"] != "done" or res.get("base_id") != base_id or res.get("n_bitx") != n_tensors:
+            server.fail(f"the PUT's ingest job ended {job}; want done, BitX-coded against "
+                        f"{base_id}, all {n_tensors} tensors")
+        _due(server, before, _calls(_stats(server)), ["xor_split"], "the PUT's ingest")
+        log(f"hub: PUT {HUB_FT2} ({size2} bytes; upload {t_upload:.2f} s) and its ingest job "
+            f"{t_put:.2f} s: {size2 / t_put / 1e6:.1f} MB/s, all {n_tensors} tensors BitX-coded "
+            f"against {base_id}, stored {res.get('stored_bytes')} bytes; card: {smi}")
+
+        # the three BitX reads of the new fine-tune, then the whole file
+        before = _calls(_stats(server))
+        for name, how in HUB_BITX_READS:
+            r = _ranged(server, sources, HUB_FT2, name, how)
+            if r["codec"] != "bitx":
+                server.fail(f"{HUB_FT2} {name} served from codec {r['codec']}, not bitx")
+            cold.append(r)
+        _due(server, before, _calls(_stats(server)), ["merge_xor"], f"the BitX GETs of {HUB_FT2}")
+        h = hashlib.sha256()
+        status, hdr, _, t_get = _http(server, "GET", f"/repo/{HUB_FT2}/file/model.safetensors",
+                                      sink=h.update)
+        if status != 200 or h.hexdigest() != want_sha2:
+            server.fail(f"whole-file GET of {HUB_FT2} gave {status}, sha256 {h.hexdigest()}; "
+                        f"the uploaded file's is {want_sha2}")
+        log(f"hub: GET of the whole {HUB_FT2} ({size2} bytes) in {t_get:.2f} s: "
+            f"{size2 / t_get / 1e6:.1f} MB/s, sha256 equal to the uploaded file's; card: {smi}")
+
+        stats = _stats(server)
+        c = stats["store"]["backend_counters"]
+        if c["device"] != HUB_DEVICE or any(c["kernel_calls"][k] == 0
+                                          for k in ("xor_split", "merge_xor", "merge")):
+            server.fail(f"the server's counters show {c}")
+        q = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                            "--format=csv,noheader"], capture_output=True, text=True)
+        apps = [a.split(",") for a in q.stdout.strip().splitlines() if "," in a]
+        mine = [m.strip() for pid, m in apps if pid.strip() == str(server.proc.pid)]
+        smi_mem = (mine[0] if mine else
+                   f"not listed (exit code {q.returncode}; it lists {q.stdout.strip()!r} "
+                   f"{q.stderr.strip()!r})")
+        used_delta = _gpu_used_mib() - used_before
+        rc = server.stop()
+        if rc != 0:
+            server.fail(f"exited with code {rc} after SIGINT")
+    finally:
+        server.kill()
+        for sf in sources.values():
+            sf.close()
+    lib_after = os.stat(lib)
+    if (lib_after.st_ino, lib_after.st_mtime_ns) != (lib_before.st_ino, lib_before.st_mtime_ns):
+        raise AssertionError(f"hub: the server rebuilt {lib} instead of loading phase 2's build")
+
+    lat = [r["seconds"] * 1e3 for r in cold]
+    out = {
+        "card": smi, "startup_s": server.startup_s,
+        "put_ingest_MBps": size2 / t_put / 1e6, "put_ingest_s": t_put, "upload_s": t_upload,
+        "get_file_MBps": size2 / t_get / 1e6, "get_file_s": t_get, "file_bytes": size2,
+        "ranged_cold_ms": {"n": len(lat), "p50": _pct(lat, 50), "p99": _pct(lat, 99)},
+        "ranged_warm_ms": {"n": len(warm), "p50": _pct([w * 1e3 for w in warm], 50),
+                           "p99": _pct([w * 1e3 for w in warm], 99), "kernel_calls": warm_calls},
+        "singleflight": {"leaders": leaders, "joined": joined},
+        "kernel_calls": c["kernel_calls"], "h2d_bytes": c["h2d_bytes"],
+        "d2h_bytes": c["d2h_bytes"], "peak_allocated_bytes": c["peak_allocated_bytes"],
+        "nvidia_smi_used_memory": smi_mem, "card_used_delta_mib": used_delta,
+        "device": c["device"], "exit_code": rc,
+        "reads": [[r["repo"], r["name"], r["codec"], r["bytes"], r["seconds"] * 1e3] for r in cold],
+    }
+    log(f"hub: ranged GET latency, first decode of each tensor: p50 {out['ranged_cold_ms']['p50']:.2f}"
+        f" ms, p99 {out['ranged_cold_ms']['p99']:.2f} ms over {len(lat)} reads (codecs "
+        f"{sorted(set(r['codec'] for r in cold))}); from the decoded cache (1 MiB of k_proj): p50 "
+        f"{out['ranged_warm_ms']['p50']:.3f} ms, p99 {out['ranged_warm_ms']['p99']:.3f} ms over "
+        f"{len(warm)} reads ({warm_calls} kernel calls); card: {smi}")
+    log(f"hub: server kernel launches {c['kernel_calls']}, H2D {c['h2d_bytes']} B, D2H "
+        f"{c['d2h_bytes']} B on {c['device']}; card: {smi}")
+    log(f"hub: server device memory: nvidia-smi by pid: {smi_mem}; the card's memory in use rose "
+        f"{used_delta} MiB from before the server started to its last request; peak PyTorch "
+        f"allocation {c['peak_allocated_bytes'] / 2**30:.2f} GiB; exited {rc} on SIGINT; kernel library "
+        f"loaded from phase 2's build, not rebuilt; card: {smi}")
+    return out
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -983,6 +1382,9 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-serve-")
     try:
         launches["flash_attention"], path_err = phase_serve(tmp, SEED)
+        t8 = time.perf_counter()
+        hub = phase_hub(tmp, SEED, smi)
+        log(f"hub: phase 8 took {time.perf_counter() - t8:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # no path of the JAX package calls xor_2d: its count is phase 3's
@@ -1019,6 +1421,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library": FLASH_LIBRARY,
             "host_us": r["host_us"], **build_info.get(instance[route], {}), "card": smi,
         })
+    print(json.dumps({"hub_server": hub}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

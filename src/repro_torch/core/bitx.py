@@ -222,6 +222,13 @@ class TorchBackend:
     bytes and, on the card, CUDA-event times of kernels and copies) sit behind
     a lock, because the store's worker threads call the single ops
     concurrently on the per-record decode path.
+
+    Concurrent callers (the HTTP server's retrieval pool, its ingest thread)
+    all enqueue on the device's default stream. Each result is still their
+    own, because every call waits on its own last event; but the event times
+    one thread records then also span other threads' work, so under
+    concurrency ``kernel_ms`` / ``copy_ms`` overstate and only the calls and
+    bytes count exactly.
     """
 
     name = "torch"
@@ -234,6 +241,8 @@ class TorchBackend:
                 raise RuntimeError(
                     "TorchBackend(device='cuda') needs a CUDA device and none is "
                     "visible; pass device='cpu' to run the plain PyTorch versions")
+            if self.device.index is None:  # name the card: "cuda:0", not "cuda"
+                self.device = torch.device("cuda", torch.cuda.current_device())
         elif self.device.type != "cpu":
             raise ValueError(f"TorchBackend runs on 'cuda' or 'cpu', not {self.device}")
         self._lock = threading.Lock()
@@ -250,12 +259,17 @@ class TorchBackend:
     def counters(self) -> Dict:
         """Snapshot: ``kernel_calls`` per kernel (one per non-empty bucket;
         launches on the card, plain versions on the CPU), ``h2d_bytes`` /
-        ``d2h_bytes`` moved to and from the card, and the summed CUDA-event
-        times ``kernel_ms`` / ``copy_ms`` (0 on the CPU)."""
+        ``d2h_bytes`` moved to and from the card, the summed CUDA-event
+        times ``kernel_ms`` / ``copy_ms`` (0 on the CPU), the ``device`` and,
+        on the card, ``peak_allocated_bytes``: the process's peak of PyTorch
+        allocations on that device (``torch.cuda.max_memory_allocated``;
+        not reset by :meth:`reset_counters`)."""
         with self._lock:
             c = dict(self._counts)
             c["kernel_calls"] = dict(c["kernel_calls"])
         c["device"] = str(self.device)
+        c["peak_allocated_bytes"] = (torch.cuda.max_memory_allocated(self.device)
+                                     if self.device.type == "cuda" else 0)
         return c
 
     def reset_counters(self) -> None:

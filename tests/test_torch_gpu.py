@@ -2,7 +2,7 @@
 (the six storage kernels byte for byte, the bit counts exactly; both routes of
 flash attention within the reference's tolerances, each call asserting the
 route it took), the device store path, the bit-distance calibration and the
-serving engine on the card.
+serving engine and the HTTP store server on the card.
 
 Run on a machine with a CUDA card:
 
@@ -349,3 +349,64 @@ def test_serve_engine_on_card(cuda):
     for rid in ids:
         out = batcher.result(rid)
         assert out.shape == (5,) and ((0 <= out) & (out < cfg.vocab)).all()
+
+
+def test_server_on_card(cuda, tmp_path):
+    """The HTTP hub over a store on the card: a PUT of a fine-tune and the
+    ranged GETs (file, BitX tensor, ZipNN base tensor) are bit-exact, and
+    ``/stats`` shows the launches on ``cuda:0``."""
+    import http.client
+    import json
+
+    from repro_torch.serve.store_server import ServerThread
+
+    root = str(tmp_path / "hub")
+    spec = CorpusSpec(n_layers=2, d_model=256, d_ff=512, vocab=1024, n_heads=4, n_kv_heads=2,
+                      qkv_bias=True)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    base = make_base_tensors(spec, gen)
+    write_repo(root, "org/base", base)
+    write_repo(root, "u/ft", make_finetune(base, spec, gen), base_model="org/base")
+    store = ZLLMStore(str(tmp_path / "store"), workers=2)
+    assert str(store.backend.device) == "cuda:0"
+    store.ingest_repo(os.path.join(root, "org/base"), "org/base")
+    src = open(os.path.join(root, "u/ft", "model.safetensors"), "rb").read()
+    base_src = open(os.path.join(root, "org/base", "model.safetensors"), "rb").read()
+    store.backend.reset_counters()
+    try:
+        with ServerThread(store, max_concurrency=4) as srv:
+            conn = http.client.HTTPConnection(srv.host, srv.port, timeout=120)
+
+            def get(path, rng=None):
+                conn.request("GET", path, headers={"Range": rng} if rng else {})
+                r = conn.getresponse()
+                return r.status, dict(r.getheaders()), r.read()
+
+            conn.request("PUT", "/repo/u/ft/file/model.safetensors?base=org/base&sync=1",
+                         body=src)
+            r = conn.getresponse()
+            job = json.loads(r.read())["job"]
+            assert r.status == 200 and job["state"] == "done", job
+            assert job["results"][0]["n_bitx"] > 0
+            status, _, body = get("/repo/u/ft/file/model.safetensors")
+            assert status == 200 and body == src
+            status, _, body = get("/repo/u/ft/file/model.safetensors", "bytes=1000-99999")
+            assert status == 206 and body == src[1000:100000]
+            for repo, name in (("u/ft", "model.layers.0.self_attn.q_proj.weight"),
+                               ("u/ft", "model.embed_tokens.weight"),
+                               ("org/base", "model.layers.1.mlp.up_proj.weight")):
+                direct, _ = store.retrieve_tensor(repo, "model.safetensors", name)
+                status, h, body = get(f"/repo/{repo}/tensor/{name}", "bytes=64-8191")
+                assert status == 206 and body == direct[64:8192], (repo, name)
+            # the tensors are the source file's bytes
+            status, _, body = get("/repo/org/base/file/model.safetensors", "bytes=0-65535")
+            assert status == 206 and body == base_src[:65536]
+            status, _, stats = get("/stats")
+            counters = json.loads(stats)["store"]["backend_counters"]
+            conn.close()
+    finally:
+        store.close()
+    assert counters["device"] == "cuda:0"
+    calls = counters["kernel_calls"]
+    assert calls["xor_split"] > 0 and calls["merge_xor"] > 0 and calls["merge"] > 0, calls
+    assert counters["h2d_bytes"] > 0 and counters["d2h_bytes"] > 0

@@ -17,7 +17,9 @@ from repro_torch.models import api
 from repro_torch.serve import engine
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py",
+    REPO / "examples" / "torch_serve_from_compressed.py"]
 BANNED = {"jax", "jaxlib", "repro", "benchmarks", "ml_dtypes"}
 
 
@@ -42,7 +44,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     ``jax`` and ``repro`` cannot be imported."""
     modules = sorted(
         ".".join(p.relative_to(REPO / "src").with_suffix("").parts).removesuffix(".__init__")
-        for p in PORT_FILES if p.name != "chip_smoke.py")
+        for p in PORT_FILES if p.is_relative_to(REPO / "src"))
     code = ("import sys\n"
             "for m in ('jax', 'repro', 'ml_dtypes'):\n"
             "    sys.modules[m] = None\n"
@@ -57,7 +59,10 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr
     for m in ("repro_torch.core.pipeline", "repro_torch.models.transformer",
               "repro_torch.serve.engine", "repro_torch.kernels.flash_attention",
-              "repro_torch.configs.qwen2_7b", "repro_torch.sharding.rules"):
+              "repro_torch.configs.qwen2_7b", "repro_torch.sharding.rules",
+              "repro_torch.core.chunkdedup", "repro_torch.serve.singleflight",
+              "repro_torch.serve.router", "repro_torch.serve.peer",
+              "repro_torch.serve.store_server"):
         assert m in modules, m
 
 
@@ -73,6 +78,19 @@ def test_no_card_means_no_store(monkeypatch, tmp_path):
         bitx.get_backend("torch")
     # asked for explicitly, the CPU path is there
     assert bitx.TorchBackend(device="cpu").device.type == "cpu"
+
+
+def test_no_card_means_no_server(tmp_path):
+    """``python -m repro_torch.serve.store_server`` with no visible card exits
+    non-zero with ``TorchBackend``'s error: it never serves from the CPU."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve.store_server", "--root",
+         str(tmp_path / "store"), "--port", "0"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode != 0
+    assert "TorchBackend(device='cuda') needs a CUDA device" in proc.stderr, proc.stderr
+    assert "serving" not in proc.stdout, proc.stdout
 
 
 def test_no_card_means_no_calibration(monkeypatch):
