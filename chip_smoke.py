@@ -64,11 +64,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    load phase 2's kernel library without rebuilding it and exit 0 on SIGINT.
    PUT and GET MB/s, ranged-GET latency, the server's launches, bytes and
    device memory are printed beside the card's name and power limit, and on a
-   JSON line of their own (``hub_server``).
+   JSON line of their own (``hub_server``);
+9. families: the SSM and whisper families through ``ServeEngine.generate``
+   with attn="flash", batches of 4, parameters drawn on the card from the
+   seed. 9a whisper-medium at published widths and depth (24 + 24 layers;
+   frames stub (4, 1500, 1024), 64-token prompts, 32 new tokens: 72 flash
+   calls a prefill, encoder, causal self and cross attention, all ``sm90``);
+   9b zamba2-2.7b at published widths and depth (54 Mamba-2 layers, the
+   shared block 9 times at head dim 80: 9 flash calls a prefill, all
+   ``simt``; 1024-token prompts, 16 new); 9c falcon-mamba-7b at published
+   widths, depth cut from 64 layers to 2 (full-vocabulary embed and lm_head
+   kept): a base and a fine-tune written as BF16/F32 safetensors, ingested
+   into a fresh store (the fine-tune BitX-coded against its declared base at
+   2- and 4-byte words), the fine-tune cold-started bit-equal to its source
+   and served (1024-token prompts, 16 new). For each model: flash launches
+   counted by route in the served run; every flash call of a prefill held
+   against its plain version; the flash and plain engines' prefill logits
+   against a float32 copy of the model; prefill S + one decode step against
+   prefill S + 1; ``_pad_cache`` growing exactly the attention caches
+   (falcon-mamba's cache bytes the same at 128 and 1024 tokens); prefill ms
+   (served and warm), decode ms per step, tokens/s and peak device memory,
+   for 9c ingest MB/s and the cold start, beside the card's name and power
+   limit. The flash kernel is timed at 9b's shape (simt, D 80, causal) and
+   at 9a's encoder shape (sm90, D 64, bidirectional) beside its bound and
+   ``scaled_dot_product_attention``. The results go on a JSON line of their
+   own (``families``).
 
 Phase 3 also holds both flash-attention kernels (routes ``sm90`` and ``simt``)
 against their plain version (``ref.mha_reference``) at the reference tests'
-cases, ragged lengths, every head dim, Sq != Sk, bidirectional and windowed
+cases, ragged lengths, every head dim (80 included), Sq != Sk, bidirectional and windowed
 masks, fully masked rows and strided (fused-projection) and misaligned
 operands, asserting the route of each call, and times both at the shapes
 phase 7's prefills give the kernel (B 4, S 2032 and 512, H 28, D 128, bf16,
@@ -76,8 +100,8 @@ causal) and at S 2048, beside their bound, the plain version and
 ``torch.nn.functional.scaled_dot_product_attention``, with the wrapper's host
 time per call.
 
-The last lines are the hub server's line, the card's name and power limit,
-the kernels line (one JSON object) and the result line
+The last lines are the hub server's line, the families line, the card's name
+and power limit, the kernels line (one JSON object) and the result line
 ``{"ok": true, "device": {...}}``. Model files and stores go to a temporary
 directory outside the repository, removed at the end.
 """
@@ -107,7 +131,8 @@ from pathlib import Path  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import qwen2_7b  # noqa: E402
+from repro_torch.configs import falcon_mamba_7b, qwen2_7b, whisper_medium, zamba2_2_7b  # noqa: E402
+from repro_torch.core import bitx  # noqa: E402
 from repro_torch.core.bitdistance import (bit_distance_files, calibration_heatmap,  # noqa: E402
                                           hamming_total_arrays, shape_signature)
 from repro_torch.core.bitx import TorchBackend  # noqa: E402
@@ -117,7 +142,7 @@ from repro_torch.formats.safetensors import SafetensorsFile  # noqa: E402
 from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import ssm, transformer, whisper  # noqa: E402
 from repro_torch.models.api import get_model, init_params  # noqa: E402
 from repro_torch.serve.engine import RequestBatcher, ServeEngine  # noqa: E402
 
@@ -369,6 +394,10 @@ FLASH_CASES = [
     (2, 77, 77, 3, 128, True, 0), (1, 300, 170, 2, 64, True, 0),
     (1, 170, 300, 2, 128, False, 0), (1, 260, 260, 2, 64, True, 64),
     (1, 128, 16, 2, 64, False, 8),
+    # head dim 80 (zamba2-2.7b; simt in both dtypes): ragged, Sq != Sk, a
+    # window; and whisper's cross attention, 64 decoder tokens to 1500 frames
+    (2, 333, 333, 4, 80, True, 0), (1, 64, 300, 2, 80, False, 0), (1, 200, 200, 2, 80, True, 64),
+    (2, 64, 1500, 16, 64, False, 0),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_flash_kernel.py:33
 # (B, S) of the timed shapes, all bf16 causal at Qwen2-7B's 28 query heads of
@@ -411,11 +440,11 @@ def flash_checked(q, k, v, causal: bool, window: int = 0, *, route: str) -> tupl
     return got, held_to_plain(got, q, k, v, causal, window)
 
 
-def flash_bound(B: int, S: int, H: int, D: int) -> tuple:
-    """(bound ms, what bounds it) of causal bf16 attention at these shapes:
+def flash_bound(B: int, S: int, H: int, D: int, causal: bool = True) -> tuple:
+    """(bound ms, what bounds it) of bf16 self attention at these shapes:
     both products over the unmasked (q, k) pairs at the bf16 tensor-core rate,
     against each input read and the output written once at the memory rate."""
-    pairs = B * H * S * (S + 1) // 2
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
     ops_ms = 4 * pairs * D / BF16_FLOP_PER_S * 1e3
     bytes_ms = 4 * B * S * H * D * 2 / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
@@ -424,7 +453,7 @@ def flash_bound(B: int, S: int, H: int, D: int) -> tuple:
 def phase_flash(gen: torch.Generator) -> dict:
     """Both flash kernels against their plain version; their times at the
     serving path's shapes. Returns each route's report entry (the first timed
-    shape's) and the simt route's launches in this phase."""
+    shape's)."""
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     bf16 = torch.bfloat16
     fa.reset_route_launches()
@@ -449,7 +478,7 @@ def phase_flash(gen: torch.Generator) -> dict:
         worst[("bfloat16", "simt")] = max(worst[("bfloat16", "simt")], err)
     launches = fa.route_launches()
     log(f"kernel flash_attention: both routes equal to their plain version at "
-        f"{len(FLASH_CASES)} shapes x 2 dtypes (D in {{16, 32, 64, 128, 256}}, ragged 33/77/1000, "
+        f"{len(FLASH_CASES)} shapes x 2 dtypes (D in {{16, 32, 64, 80, 128, 256}}, ragged 33/77/1000, "
         f"causal, bidirectional, window 64, Sq != Sk both ways, fully masked rows) and on "
         f"fused-projection and misaligned slices; launches by route {launches}; max_abs_err "
         + ", ".join(f"{dt} {r} {e:.3e}" for (dt, r), e in sorted(worst.items()))
@@ -482,7 +511,6 @@ def phase_flash(gen: torch.Generator) -> dict:
             reports.setdefault(route, r)
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    reports["simt"]["launches"] = launches["simt"]
     return reports
 
 
@@ -1347,6 +1375,436 @@ def phase_hub(tmp: str, seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the SSM and whisper families served on the card
+# ---------------------------------------------------------------------------
+
+FAMILY_BATCH = 4
+WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_NEW = 1500, 64, 32  # 30 s of audio after the conv stub
+LM_PROMPT, LM_NEW = 1024, 16    # zamba2 and falcon-mamba: multiples of the scan chunk 128
+MAMBA_LAYERS = 2                # falcon-mamba's depth cut (of 64)
+MAMBA_REPOS = ("tiiuae/falcon-mamba-base", "alice/falcon-mamba-ft")  # base, fine-tune declaring it
+# The bf16 engines' prefill logits are held to a float32 copy of the model on
+# the same parameters and inputs. bf16 keeps 8 significant bits (a relative
+# rounding of 2^-9, about 0.2%); each layer rounds its residual stream and its
+# block outputs to bf16 a handful of times, and if those errors add like a
+# random walk the logits stray by about 0.002 * sqrt(10 * layers) of their
+# scale: 0.02-0.03 at whisper's 48 layers and zamba2's 63 blocks. FAMILY_DRIFT
+# allows 0.1 of the float32 model's largest |logit|, so a fault (a wrong mask,
+# cache or scan) that moves the logits by their own scale fails, and the
+# flash engine must stray no more than SERVE_DRIFT times as far as the plain
+# engine, as in phase 7.
+FAMILY_DRIFT = 0.1
+# Prefill of S tokens plus one decode step against prefill of S + 1. The
+# float32 copy of each model is held to tests/test_models_smoke.py:106's 2e-2
+# (as rtol and atol; float32 rounding over sums of up to 10240 terms and 48-63
+# blocks stays far below it): it shows that decode computes what prefill does.
+# The bf16 engines round at other points in a one-token decode than in a
+# prefill (GEMMs of 4 rows against 4 x S rows sum in another order); at
+# whisper-medium's 48 layers that alone moves logits by about 0.025 of a 2.6
+# scale on an H100, past 2e-2 as rtol and atol. So the bf16 engines are held
+# to the bf16 allowance of the prefill logits, FAMILY_DRIFT of the float32
+# model's scale, and the flash engine (prefill through the kernel, decode
+# through layers.attention) also to SERVE_DRIFT times the larger of the plain
+# engine's figure and of the flash and plain engines' difference at S + 1.
+CONSISTENCY_S = 128
+CONSISTENCY_TOL = 2e-2
+# the cache entries the engine must grow before decode, per family
+FAMILY_GROWS = {"encdec": {"self_k", "self_v"}, "hybrid": {"attn_k", "attn_v"}, "ssm": set()}
+
+
+def _generate(engine: ServeEngine, prompts: np.ndarray, n_new: int, extra=None) -> dict:
+    """``engine.generate`` once, timed: the result, the prefill and decode
+    timers, the wall time and the cache shapes before and after ``_pad_cache``."""
+    model = engine.model
+    prefill, decode = _Timed(model.prefill), _Timed(model.decode_step)
+    model.prefill, model.decode_step = prefill, decode
+    pads = []
+    pad = engine._pad_cache
+
+    def recorded(cache, extra_len):
+        out = pad(cache, extra_len)
+        pads.append(({k: tuple(v.shape) for k, v in cache.items() if k != "len"},
+                     {k: tuple(v.shape) for k, v in out.items() if k != "len"},
+                     {k: out[k] is v for k, v in cache.items() if k != "len"}))
+        return out
+
+    engine._pad_cache = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.generate(prompts, n_new, extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step, engine._pad_cache
+    return {"res": res, "prefill": prefill, "decode": decode, "wall": wall, "pads": pads}
+
+
+def _check_growth(name: str, family: str, pads, n_new: int) -> None:
+    """``_pad_cache`` grew exactly the family's growing entries, by n_new
+    along axis 2, and handed every other entry on as it was."""
+    (before, after, same), = pads
+    want = FAMILY_GROWS[family]
+    grew = {k for k in before if after[k] != before[k]}
+    if grew != want:
+        raise AssertionError(f"{name}: _pad_cache grew {sorted(grew)}, want {sorted(want)}")
+    for k in before:
+        if k in want:
+            exp = before[k][:2] + (before[k][2] + n_new,) + before[k][3:]
+            if after[k] != exp:
+                raise AssertionError(f"{name}: {k} grew {before[k]} -> {after[k]}, want {exp}")
+        elif not same[k]:
+            raise AssertionError(f"{name}: _pad_cache copied {k}, which does not grow")
+
+
+def _cache_bytes(cache: dict) -> int:
+    return sum(v.numel() * v.element_size() for k, v in cache.items() if k != "len")
+
+
+def _family_checks(name: str, cfg, engine: ServeEngine, batch: dict, route, module) -> dict:
+    """On the served prefill's batch: every flash call held against its plain
+    version (route asserted), the flash and plain engines' logits against the
+    float32 model's, and prefill S + decode one against prefill S + 1."""
+    out = {}
+    model, params = engine.model, engine.params
+    # the same prefill again, warm (the served one was the process's first
+    # call of these shapes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, batch)
+    torch.cuda.synchronize()
+    out["warm_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    log(f"families {name}: prefill again, warm: {out['warm_prefill_ms']:.2f} ms")
+    # the kernel on exactly the tensors the path gives it, after the counted
+    # run (these launches are not counted)
+    errs = []
+    if route is not None:
+        def checked(q, k, v, *, causal, window=0):
+            got, err = flash_checked(q, k, v, causal, window, route=route)
+            errs.append((tuple(q.shape), tuple(k.shape), causal, err))
+            return got
+
+        module.flash_attention = checked
+        try:
+            lf, _ = model.prefill(params, batch)
+        finally:
+            module.flash_attention = flash_attention
+        out["flash_calls"] = len(errs)
+        out["flash_err"] = max(e for *_, e in errs)
+        log(f"families {name}: each of the {len(errs)} flash calls of a prefill took the {route} "
+            f"route and equals its plain version on its own inputs (q/k shapes, causal: "
+            f"{sorted(set(e[:3] for e in errs))}; max_abs_err {out['flash_err']:.3e}, tolerance "
+            f"2e-2 as rtol and atol)")
+    else:
+        lf, _ = model.prefill(params, batch)
+    plain = ServeEngine(cfg, params, device=DEVICE, attn="plain")
+    before = _build.launch_counts()["flash_attention"]
+    lp, _ = plain.model.prefill(params, batch)
+    if _build.launch_counts()["flash_attention"] != before:
+        raise AssertionError(f"families {name}: the plain engine launched the flash kernel")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", act_dtype="float32")
+    model32 = get_model(cfg32, attn="plain")
+    batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+    params32 = {k: v.float() for k, v in params.items()}
+    l32, _ = model32.prefill(params32, batch32)
+    scale = float(l32.abs().max())
+    drift = {"flash": float((lf - l32).abs().max()), "plain": float((lp - l32).abs().max())}
+    if not (max(drift.values()) <= FAMILY_DRIFT * scale
+            and drift["flash"] <= SERVE_DRIFT * drift["plain"]):
+        raise AssertionError(f"families {name}: prefill logits stray {drift} from the float32 "
+                             f"model's (max |logit| {scale}); allowed {FAMILY_DRIFT} of it, and "
+                             f"flash at most {SERVE_DRIFT}x plain")
+    out.update(logit_scale=scale, drift_flash=drift["flash"], drift_plain=drift["plain"],
+               flash_vs_plain=float((lf - lp).abs().max()))
+    log(f"families {name}: prefill logits (float32 model's max |logit| {scale:.4f}) against the "
+        f"float32 model's: flash engine {drift['flash']:.4e}, plain engine {drift['plain']:.4e} "
+        f"(allowed {FAMILY_DRIFT} x {scale:.4f}, and flash at most {SERVE_DRIFT}x plain); "
+        f"flash against plain {out['flash_vs_plain']:.4e}")
+
+    # prefill S + one decode step against prefill S + 1, on the float32
+    # model, the plain engine and the flash engine (decode always attends
+    # through layers.attention)
+    S = min(CONSISTENCY_S, batch["tokens"].shape[1])
+    errs = {}
+    fulls = {}
+    for which, m, p, b in (("float32", model32, params32, batch32), ("plain", plain.model, params,
+                                                                       batch),
+                           ("flash", model, params, batch)):
+        short = dict(b, tokens=b["tokens"][:, :S])
+        lg, cache = m.prefill(p, short)
+        nxt = lg.argmax(dim=-1).to(torch.int32)[:, None]
+        ld, _ = m.decode_step(p, {"tokens": nxt}, engine._pad_cache(cache, 1))
+        lfull, _ = m.prefill(p, dict(short, tokens=torch.cat([short["tokens"], nxt], dim=1)))
+        diff = (ld - lfull).abs()
+        ok = (bool((diff <= CONSISTENCY_TOL + CONSISTENCY_TOL * lfull.abs()).all())
+              if which == "float32" else float(diff.max()) <= FAMILY_DRIFT * scale)
+        errs[which] = (float(diff.max()), ok)
+        fulls[which] = lfull
+    del params32
+    torch.cuda.empty_cache()
+    noise = float((fulls["flash"] - fulls["plain"]).abs().max())
+    if not (all(ok for _, ok in errs.values())
+            and errs["flash"][0] <= SERVE_DRIFT * max(noise, errs["plain"][0])):
+        raise AssertionError(f"families {name}: prefill {S} + decode against prefill {S + 1}: "
+                             f"{errs} (flash engine against plain at {S + 1}: {noise})")
+    out.update(consistency_err={k: e for k, (e, _) in errs.items()}, consistency_noise=noise)
+    log(f"families {name}: prefill of {S} tokens + one decode step against prefill of {S + 1}, "
+        f"max_abs_err: float32 model {errs['float32'][0]:.4e} (tolerance {CONSISTENCY_TOL} as rtol "
+        f"and atol), plain engine {errs['plain'][0]:.4e} (allowed {FAMILY_DRIFT} x {scale:.4f}), "
+        f"flash engine {errs['flash'][0]:.4e} (allowed that too, and {SERVE_DRIFT}x the larger of "
+        f"the plain engine's and of the flash and plain engines' difference at {S + 1}, "
+        f"{noise:.4e})")
+    return out
+
+
+def _family_serve(name: str, cfg, engine: ServeEngine, prompts, n_new: int, extra, route,
+                  per_prefill: int, smi: str) -> tuple:
+    """The counted serving run: counts from 0 just before, read just after.
+    Returns (report, flash launches by route)."""
+    _build.reset_launch_counts()
+    fa.reset_route_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = _generate(engine, prompts, n_new, extra)
+    launches = _build.launch_counts()["flash_attention"]
+    routes = fa.route_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {r: per_prefill if r == route else 0 for r in routes}
+    if launches != per_prefill or routes != want:
+        raise AssertionError(f"families {name}: {launches} flash launches by route {routes}, "
+                             f"want {want}")
+    toks = run["res"].tokens
+    B, S = prompts.shape
+    if toks.shape != (B, S + n_new) or not ((0 <= toks) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"families {name}: bad generated tokens {toks[:, S:]}")
+    for lg in run["prefill"].logits + run["decode"].logits:
+        if not torch.isfinite(lg).all() or lg.shape != (B, cfg.vocab):
+            raise AssertionError(f"families {name}: non-finite or misshapen logits")
+    _check_growth(name, cfg.family, run["pads"], n_new)
+    pre_ms = 1e3 * run["prefill"].seconds[0]
+    dec_ms = 1e3 * sum(run["decode"].seconds) / len(run["decode"].seconds)
+    r = {"prefill_ms": pre_ms, "decode_ms": dec_ms, "tok_per_s": B * n_new / run["wall"],
+         "wall_s": run["wall"], "peak_bytes": peak, "flash_launches": routes,
+         "grown": sorted(k for k in run["pads"][0][0]
+                         if run["pads"][0][1][k] != run["pads"][0][0][k]), "card": smi}
+    log(f"families {name}: {B} prompts of {S} tokens, {n_new} new each, in {run['wall']:.3f} s: "
+        f"{r['tok_per_s']:.1f} generated tokens/s; prefill {pre_ms:.2f} ms; decode {dec_ms:.3f} ms "
+        f"per step ({len(run['decode'].seconds)} steps); peak device memory {peak / 2**30:.2f} GiB; "
+        f"flash launches by route {routes}; _pad_cache grew {r['grown']}; card: {smi}")
+    return r, routes
+
+
+def _time_flash(B: int, S: int, H: int, D: int, causal: bool, route: str,
+                gen: torch.Generator) -> dict:
+    """One flash shape timed on its route beside its bound, its plain version
+    and scaled_dot_product_attention."""
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+               for _ in range(3))
+    err = flash_checked(q, k, v, causal, route=route)[1]
+    fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    r = {"shape": [B, S, H, D], "causal": causal, "route": route, "max_abs_err": err,
+         "ms": cuda_ms(fn), "host_us": host_us(fn),
+         "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal), iters=3),
+         "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=causal))}
+    r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal)
+    log(f"kernel {FLASH[route]['name']} ({route}): {r['ms']:.4f} ms at B={B} S={S} H={H} D={D} "
+        f"bf16 {'causal' if causal else 'bidirectional'} (bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it); host {r['host_us']:.1f} us per "
+        f"call; plain version {r['plain_ms']:.4f} ms; library: {FLASH_LIBRARY} "
+        f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.2f}x the kernel's speed); "
+        f"max_abs_err {err:.3e} (tolerance 2e-2)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_whisper(seed: int, smi: str) -> tuple:
+    """9a: whisper-medium at published widths and depth."""
+    cfg = whisper_medium.CONFIG
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    params = init_params(cfg, gen)
+    n_params = sum(t.numel() for t in params.values())
+    log(f"families whisper: {cfg.name} ({cfg.n_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.param_dtype}): {n_params / 1e9:.3f} G params drawn on the card; frames "
+        f"stub ({FAMILY_BATCH}, {WHISPER_FRAMES}, {cfg.d_model}), prompts {FAMILY_BATCH} x "
+        f"{WHISPER_PROMPT}, {WHISPER_NEW} new tokens")
+    frames = (torch.randn((FAMILY_BATCH, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                          device=DEVICE) * 0.02).to(torch.bfloat16)
+    prompts = np.random.default_rng(seed + 5).integers(
+        1, cfg.vocab, (FAMILY_BATCH, WHISPER_PROMPT)).astype(np.int32)
+    engine = ServeEngine(cfg, params, device=DEVICE)
+    del params
+    report, routes = _family_serve("whisper", cfg, engine, prompts, WHISPER_NEW,
+                                   {"frames": frames}, "sm90", 3 * cfg.n_layers, smi)
+    batch = {"tokens": torch.as_tensor(prompts, device=DEVICE), "frames": frames}
+    report.update(_family_checks("whisper", cfg, engine, batch, "sm90", whisper))
+    report["seconds"] = time.perf_counter() - t0
+    del engine
+    torch.cuda.empty_cache()
+    return report, routes
+
+
+def phase_zamba2(seed: int, smi: str) -> tuple:
+    """9b: zamba2-2.7b at published widths and depth."""
+    cfg = zamba2_2_7b.CONFIG
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 6)
+    params = init_params(cfg, gen)
+    n_params = sum(t.numel() for t in params.values())
+    n_groups = cfg.n_layers // cfg.attn_every
+    log(f"families zamba2: {cfg.name} ({cfg.n_layers} Mamba-2 layers, d_model {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, state {cfg.ssm.d_state}, one shared block of {cfg.n_heads} heads "
+        f"of dim {cfg.hd} invoked {n_groups} times, vocab {cfg.vocab}, {cfg.param_dtype}): "
+        f"{n_params / 1e9:.3f} G params drawn on the card; prompts {FAMILY_BATCH} x {LM_PROMPT}, "
+        f"{LM_NEW} new tokens")
+    prompts = np.random.default_rng(seed + 6).integers(
+        1, cfg.vocab, (FAMILY_BATCH, LM_PROMPT)).astype(np.int32)
+    engine = ServeEngine(cfg, params, device=DEVICE)
+    del params
+    report, routes = _family_serve("zamba2", cfg, engine, prompts, LM_NEW, None, "simt",
+                                   n_groups, smi)
+    batch = {"tokens": torch.as_tensor(prompts, device=DEVICE)}
+    report.update(_family_checks("zamba2", cfg, engine, batch, "simt", ssm))
+    report["seconds"] = time.perf_counter() - t0
+    del engine
+    torch.cuda.empty_cache()
+    return report, routes
+
+
+class _Widths:
+    """Records the word width of every BitX launch the store's backend makes."""
+
+    def __init__(self):
+        self.seen = {"xor_split": set(), "merge_xor": set()}
+        self._orig = (bitx.xor_split, bitx.merge_xor)
+
+    def __enter__(self):
+        xs, mx = self._orig
+
+        def xor_split(a, b, nb):
+            self.seen["xor_split"].add(nb)
+            return xs(a, b, nb)
+
+        def merge_xor(planes, base):
+            self.seen["merge_xor"].add(planes.shape[0])
+            return mx(planes, base)
+
+        bitx.xor_split, bitx.merge_xor = xor_split, merge_xor
+        return self
+
+    def __exit__(self, *exc):
+        bitx.xor_split, bitx.merge_xor = self._orig
+
+
+def phase_mamba(tmp: str, seed: int, smi: str) -> tuple:
+    """9c: falcon-mamba-7b at published widths, depth cut to 2, stored and
+    cold-started from the port's store, then served."""
+    cfg = dataclasses.replace(falcon_mamba_7b.CONFIG, n_layers=MAMBA_LAYERS)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    base = init_params(cfg, gen)
+    ft = make_finetune(base, CorpusSpec(untouched_prob=0.0), gen)
+    n_params = sum(t.numel() for t in base.values())
+    hub = os.path.join(tmp, "hub-mamba")
+    base_id, ft_id = MAMBA_REPOS
+    write_repo(hub, base_id, {f"params/{k}": v for k, v in base.items()})
+    write_repo(hub, ft_id, {f"params/{k}": v for k, v in ft.items()}, base_model=base_id)
+    del base
+    torch.cuda.empty_cache()
+    size = os.path.getsize(os.path.join(hub, ft_id, "model.safetensors"))
+    f32 = sorted(k for k, v in ft.items() if v.dtype == torch.float32)
+    log(f"families mamba: {cfg.name} widths (d_model {cfg.d_model}, d_inner {cfg.d_inner}, state "
+        f"{cfg.ssm.d_state}, conv {cfg.ssm.d_conv}, vocab {cfg.vocab}, {cfg.param_dtype} with "
+        f"float32 {f32}); depth cut from {falcon_mamba_7b.CONFIG.n_layers} layers to "
+        f"{cfg.n_layers}, full-vocabulary embed and lm_head kept; base and fine-tune "
+        f"({n_params / 1e9:.3f} G params, {size / 1e9:.3f} GB each) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    store = ZLLMStore(os.path.join(tmp, "store-mamba"), workers=min(16, os.cpu_count() or 1),
+                      entropy_procs=0)
+    try:
+        _build.reset_launch_counts()
+        with _Widths() as widths:
+            t1 = time.perf_counter()
+            store.ingest_repo(os.path.join(hub, base_id), base_id)
+            res = store.ingest_repo(os.path.join(hub, ft_id), ft_id)[0]
+            t_ingest = time.perf_counter() - t1
+            if not (res.base_id == base_id and res.n_bitx == len(ft)):
+                raise AssertionError(f"families mamba: the fine-tune was not BitX-coded against "
+                                     f"its base in every tensor: {res}")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            engine = ServeEngine.from_store(store, ft_id, "model.safetensors", cfg, device=DEVICE)
+            torch.cuda.synchronize()
+            t_cold = time.perf_counter() - t1
+        store_launches = _build.launch_counts()
+    finally:
+        store.close()
+    if not ({2, 4} <= widths.seen["xor_split"] and {2, 4} <= widths.seen["merge_xor"]):
+        raise AssertionError(f"families mamba: BitX word widths {widths.seen}; the float32 "
+                             f"tensors must take 4-byte words, the bf16 ones 2-byte")
+    for k, t in ft.items():
+        got = engine.params[k]
+        bits = torch.int16 if t.dtype == torch.bfloat16 else torch.int32
+        if got.dtype != t.dtype or got.shape != t.shape or not torch.equal(got.view(bits),
+                                                                           t.view(bits)):
+            raise AssertionError(f"families mamba: cold-started {k} is not bit-equal to the source")
+    del ft
+    torch.cuda.empty_cache()
+    raw = 2 * size
+    log(f"families mamba: ingest of base + fine-tune {t_ingest:.2f} s ({raw / t_ingest / 1e6:.1f} "
+        f"MB/s; every fine-tune tensor BitX-coded against {base_id}, word widths {widths.seen}); "
+        f"cold start (retrieve, verify sha256, parse, load to the card) {t_cold:.2f} s; all "
+        f"{len(engine.params)} params bit-equal to the source; store kernel launches "
+        f"{ {k: v for k, v in store_launches.items() if v} }; card: {smi}")
+
+    prompts = np.random.default_rng(seed + 7).integers(
+        1, cfg.vocab, (FAMILY_BATCH, LM_PROMPT)).astype(np.int32)
+    report, routes = _family_serve("mamba", cfg, engine, prompts, LM_NEW, None, None, 0, smi)
+    batch = {"tokens": torch.as_tensor(prompts, device=DEVICE)}
+    sizes = {}
+    for S in (CONSISTENCY_S, LM_PROMPT):
+        _, cache = engine.model.prefill(engine.params, {"tokens": batch["tokens"][:, :S]})
+        sizes[S] = _cache_bytes(engine._pad_cache(cache, LM_NEW))
+    if len(set(sizes.values())) != 1:
+        raise AssertionError(f"families mamba: cache bytes by prompt length {sizes}")
+    log(f"families mamba: cache bytes after _pad_cache {sizes} by prompt length: O(1)")
+    report.update(_family_checks("mamba", cfg, engine, batch, None, None))
+    report.update(ingest_MBps=raw / t_ingest, ingest_s=t_ingest, cold_start_s=t_cold,
+                  cache_bytes=sizes[LM_PROMPT], seconds=time.perf_counter() - t0,
+                  bitx_widths={k: sorted(v) for k, v in widths.seen.items()})
+    del engine
+    torch.cuda.empty_cache()
+    return report, routes
+
+
+def phase_families(tmp: str, seed: int, smi: str) -> dict:
+    """Phase 9: the three families through ``ServeEngine.generate`` with
+    attn="flash", and the flash kernel timed at their shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False        # and the SSMs' float32 depthwise conv
+    t0 = time.perf_counter()
+    out = {}
+    out["whisper"], r_w = phase_whisper(seed, smi)
+    out["zamba2"], r_z = phase_zamba2(seed, smi)
+    out["mamba"], _ = phase_mamba(tmp, seed, smi)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 8)
+    out["timed"] = {"simt": _time_flash(FAMILY_BATCH, LM_PROMPT, zamba2_2_7b.CONFIG.n_heads,
+                                        zamba2_2_7b.CONFIG.hd, True, "simt", gen),
+                    "sm90": _time_flash(FAMILY_BATCH, WHISPER_FRAMES, whisper_medium.CONFIG.n_heads,
+                                        whisper_medium.CONFIG.hd, False, "sm90", gen)}
+    out["launches"] = {r: r_w[r] + r_z[r] for r in r_w}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"families: phase 9 took {out['seconds']:.1f} s (whisper {out['whisper']['seconds']:.1f}, "
+        f"zamba2 {out['zamba2']['seconds']:.1f}, mamba {out['mamba']['seconds']:.1f}); flash "
+        f"launches on its paths by route {out['launches']}; card: {smi}")
+    return out
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -1387,14 +1845,17 @@ def main() -> int:
         log(f"hub: phase 8 took {time.perf_counter() - t8:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-families-")
+    try:
+        families = phase_families(tmp, SEED, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # no path of the JAX package calls xor_2d: its count is phase 3's
     launches["xor"] = report["xor"]["launches"]
     log(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     launched_by = {"hamming": "phases 4b and 6 (bit distance, calibration)",
-                   "xor": "phase 3 (kernel checks): no path of the JAX package calls xor_2d",
-                   "flash_attention": "phase 3 (kernel checks): every flash call of the serving "
-                                      "run takes the sm90 route"}
+                   "xor": "phase 3 (kernel checks): no path of the JAX package calls xor_2d"}
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
         r = report[name]
@@ -1407,20 +1868,36 @@ def main() -> int:
             "library": KERNELS[name][2],
             "card": smi,
         })
-    # the path's kernel instance of each route: D 128 in bf16
-    instance = {"sm90": "flash_fwd_sm90_kernel<128>", "simt": "flash_fwd_kernel<bf16,128,32>"}
-    for route, r in flash_reports.items():
+    # each flash route's row: the numbers at the largest shape of its path
+    # (sm90: phase 7's S 2032 prefill, D 128; simt: zamba2's shared attention,
+    # D 80), with the route's other timed shape under "also"
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
+    timed = families["timed"]
+    rows = {
+        "sm90": {"main": flash_reports["sm90"], "also": timed["sm90"],
+                 "launches": launches["flash_attention"] + families["launches"]["sm90"],
+                 "launched_by": "phases 7 (serve) and 9a (whisper-medium)",
+                 "instance": "flash_fwd_sm90_kernel<128>",
+                 "err": max(flash_reports["sm90"]["max_abs_err"], path_err, timed["sm90"]["max_abs_err"],
+                            families["whisper"]["flash_err"])},
+        "simt": {"main": timed["simt"], "also": flash_reports["simt"],
+                 "launches": families["launches"]["simt"],
+                 "launched_by": "phase 9b (zamba2-2.7b's shared attention, head dim 80)",
+                 "instance": "flash_fwd_kernel<bf16,80,64>",
+                 "err": max(flash_reports["simt"]["max_abs_err"], timed["simt"]["max_abs_err"],
+                            families["zamba2"]["flash_err"])},
+    }
+    for route, row in rows.items():
         kernels.append({
             **{k: FLASH[route][k] for k in ("name", "source")}, "route": "cuda",
             "replaces": FLASH_REPLACES, "flash_route": route,
-            "launches": launches["flash_attention"] if route == "sm90" else r["launches"],
-            "launched_by": "phase 7 (serve)" if route == "sm90" else launched_by["flash_attention"],
-            "matched": True,
-            "max_abs_err": max(r["max_abs_err"], path_err) if route == "sm90" else r["max_abs_err"],
-            "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library": FLASH_LIBRARY,
-            "host_us": r["host_us"], **build_info.get(instance[route], {}), "card": smi,
+            "launches": row["launches"], "launched_by": row["launched_by"], "matched": True,
+            "max_abs_err": row["err"], **{k: row["main"][k] for k in keys},
+            "library": FLASH_LIBRARY, "also": {k: row["also"][k] for k in keys},
+            **build_info.get(row["instance"], {}), "card": smi,
         })
+    print(json.dumps({"hub_server": hub}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"hub_server": hub}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -114,16 +114,19 @@ def _bf16_bits(t: torch.Tensor) -> np.ndarray:
 def write_repo(root: str, repo_id: str, tensors: Dict[str, torch.Tensor],
                base_model: Optional[str] = None) -> str:
     """Write ``repo_id`` under ``root``: ``model.safetensors`` (the bf16
-    tensors as BF16-tagged bit views), ``config.json`` and a ``README.md``
-    that declares ``base_model`` in its front matter when one is given."""
+    tensors as BF16-tagged bit views, float32 ones, such as an SSM's ``A_log``
+    and ``D``, as F32), ``config.json`` and a ``README.md`` that declares
+    ``base_model`` in its front matter when one is given."""
     repo_dir = os.path.join(root, repo_id)
     os.makedirs(repo_dir, exist_ok=True)
     for name, t in tensors.items():
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} is {t.dtype}; the dense families are bf16")
-    st.save_file({name: _bf16_bits(t) for name, t in tensors.items()},
+        if t.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"{name} is {t.dtype}; the model files hold bf16 and float32")
+    st.save_file({name: _bf16_bits(t) if t.dtype == torch.bfloat16
+                  else t.detach().contiguous().cpu().numpy() for name, t in tensors.items()},
                  os.path.join(repo_dir, "model.safetensors"),
-                 dtype_tags={name: "BF16" for name in tensors})
+                 dtype_tags={name: "BF16" for name, t in tensors.items()
+                             if t.dtype == torch.bfloat16})
     cfg = {"architectures": ["Qwen2ForCausalLM"], "torch_dtype": "bfloat16"}
     readme = f"# {repo_id}\n"
     if base_model:

@@ -24,7 +24,10 @@
 // step of both products reads 4 + (columns) shared-memory words for 4 x
 // (columns) FMAs, and a row's max and sum reduce over the 16 lanes of a
 // half-warp with shuffles. Q and K rows are padded by one float so the 16
-// column lanes hit 16 banks. D is a template parameter (16, 32, 64, 128, 256).
+// column lanes hit 16 banks. D is a template parameter (16, 32, 64, 80, 128,
+// 256): a multiple of 16, since the 16 column lanes own columns tx + 16*c. At
+// D 80 (zamba2-2.7b's shared attention) a 64-key tile takes 78,592 bytes of
+// shared memory, past the 48 KB default, so the launcher opts in.
 //
 // What bounds it: at the serving path's main shape (B 4, S 2048, H 28, D 128,
 // bf16, causal) the work is 2*B*H*S^2*D = 120 GFLOP against 0.23 GB of q, k, v
@@ -235,6 +238,7 @@ cudaError_t dispatch(int64_t D, const void* q, const void* k, const void* v, voi
     case 16: return launch<T, 16, 64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, stream);
     case 32: return launch<T, 32, 64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, stream);
     case 64: return launch<T, 64, 64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, stream);
+    case 80: return launch<T, 80, 64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, stream);
     case 128: return launch<T, 128, 32>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, stream);
     case 256: return launch<T, 256, 32>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, stream);
     default: return cudaErrorInvalidValue;

@@ -26,7 +26,7 @@ from repro_torch.kernels import _build, ref
 __all__ = ["flash_attention", "route", "route_launches", "reset_route_launches", "HEAD_DIMS",
            "SM90_HEAD_DIMS"]
 
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the head dims the kernels are built for
 SM90_HEAD_DIMS = (64, 128)          # the head dims of the sm90 route
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535  # heads and batch ride the grid's y and z dims

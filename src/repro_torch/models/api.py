@@ -31,14 +31,19 @@ __all__ = [
 
 def get_model(cfg: ArchConfig, attn: str = "flash"):
     """The model of ``cfg``'s family. ``attn`` picks the full-sequence
-    attention of the transformer: the CUDA kernel (``"flash"``, the default)
-    or the plain PyTorch version (``"plain"``)."""
+    attention of the models that attend: the CUDA kernel (``"flash"``, the
+    default) or the plain PyTorch version (``"plain"``); ``MambaLM`` has no
+    attention and ignores it."""
+    from repro_torch.models.ssm import MambaLM, Zamba2LM
     from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.whisper import WhisperModel
 
-    if cfg.family in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: models/ssm.py and "
-            "models/whisper.py are queued in ROADMAP.md, Open items section 1")
+    if cfg.family == "encdec":
+        return WhisperModel(cfg, attn=attn)
+    if cfg.family == "ssm":
+        return MambaLM(cfg, attn=attn)
+    if cfg.family == "hybrid":
+        return Zamba2LM(cfg, attn=attn)
     return TransformerLM(cfg, attn=attn)
 
 
@@ -76,7 +81,8 @@ def params_from_reference(flat: Mapping[str, np.ndarray],
     A bfloat16 array (detected by dtype name, as ``formats/safetensors.py``
     does, so ``ml_dtypes`` is never imported) crosses as its 16-bit pattern and
     becomes ``torch.bfloat16`` with the same bits; other dtypes cross as they
-    are."""
+    are (the SSMs' float32 ``A_log``, ``D`` and ``dt_bias`` stay float32 inside
+    a bf16 model)."""
     out = {}
     for name, arr in flat.items():
         a = np.array(arr, copy=True, order="C")  # owned and writable, as torch wants
@@ -110,7 +116,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, device) -> Dict:
 def input_templates(cfg: ArchConfig, cell: ShapeCell) -> Dict[str, ParamSpec]:
     """Templates (with logical axes) for one cell's batch.
 
-    train:   tokens + labels (B, S)  [+ patch_embeds/positions3 stubs]
+    train:   tokens + labels (B, S)  [+ frames/patch_embeds/positions3 stubs]
     prefill: tokens (B, S)           [+ stubs]
     decode:  tokens (B, 1)           (the cache is a separate argument)
     """

@@ -10,7 +10,7 @@ flat dict: ``embed``, ``final_norm``, ``lm_head`` and the per-layer
 
 Entry points, as in the reference:
 
-* ``loss(params, batch)``              — mean next-token CE (forward only)
+* ``loss(params, batch)``              — mean next-token CE, differentiable
 * ``prefill(params, batch)``           — last-position logits + KV cache
 * ``decode_step(params, batch, cache)`` — one token against the cache
 
@@ -37,21 +37,53 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.sharding.rules import ParamSpec
 
-__all__ = ["TransformerLM", "ATTN_IMPLS"]
+__all__ = ["TransformerLM", "ATTN_IMPLS", "check_attn", "stacked_params", "layer_params",
+           "count_params", "logits_f32"]
 
 ATTN_IMPLS = ("flash", "plain")
 
 
-def _layer(stacked: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+# helpers shared by the model families (ssm.py and whisper.py import them)
+
+def check_attn(attn: str) -> str:
+    """``attn`` if it names a full-sequence attention: the kernel or plain."""
+    if attn not in ATTN_IMPLS:
+        raise ValueError(f"attn must be one of {ATTN_IMPLS}, got {attn!r}")
+    return attn
+
+
+def stacked_params(params, prefix: str = "blocks.") -> Dict[str, torch.Tensor]:
+    """The tensors under ``prefix`` (stacked on a leading layer dim), keyed
+    without it."""
+    return {k.split(".", 1)[1]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def layer_params(stacked: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in stacked.items()}
 
 
+def count_params(templates: Dict[str, ParamSpec]) -> int:
+    n = 0
+    for spec in templates.values():
+        c = 1
+        for s in spec.shape:
+            c *= s
+        n += c
+    return n
+
+
+def logits_f32(h_last: torch.Tensor, w_vocab: torch.Tensor) -> torch.Tensor:
+    """float32 logits of the last position's hidden state (B, d) -> (B, V)."""
+    return h_last.float() @ w_vocab.float()
+
+
 class TransformerLM:
+    # cache entries the serving engine grows before decode
+    GROWING_CACHE = ("k", "v")
+
     def __init__(self, cfg: ArchConfig, attn: str = "flash"):
-        if attn not in ATTN_IMPLS:
-            raise ValueError(f"attn must be one of {ATTN_IMPLS}, got {attn!r}")
         self.cfg = cfg
-        self.attn = attn
+        self.attn = check_attn(attn)
 
     # ------------------------------------------------------------------
     # Parameter templates
@@ -96,13 +128,7 @@ class TransformerLM:
         return t
 
     def param_count(self) -> int:
-        n = 0
-        for spec in self.param_templates().values():
-            c = 1
-            for s in spec.shape:
-                c *= s
-            n += c
-        return n
+        return count_params(self.param_templates())
 
     def active_param_count(self) -> int:
         c = self.cfg
@@ -171,8 +197,7 @@ class TransformerLM:
         return params["lm_head"] if "lm_head" in params else params["embed"].T
 
     def _logits(self, params, h_last):
-        """float32 logits of the last position's hidden state (B, d) -> (B, V)."""
-        return h_last.float() @ self._lm_head(params).float()
+        return logits_f32(h_last, self._lm_head(params))
 
     # ------------------------------------------------------------------
     # Embedding
@@ -198,25 +223,23 @@ class TransformerLM:
             return pos, p3
         return pos, None
 
-    @staticmethod
-    def _stacked(params):
-        return {k.split(".", 1)[1]: v for k, v in params.items() if k.startswith("blocks.")}
-
     # ------------------------------------------------------------------
     # Entry points
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token CE. batch: tokens (B,S) int, labels (B,S) int
-        (+ patch_embeds / positions3 for the VLM)."""
+        (+ patch_embeds / positions3 for the VLM). Keeps the autograd graph
+        when the parameters require grad, as the reference's loss is what its
+        train step differentiates; the flash kernel is forward-only, so a
+        differentiated loss takes ``attn="plain"``."""
         c = self.cfg
         B, S = batch["tokens"].shape
         h = self._embed(params, batch)
         positions, positions3 = self._positions(batch, B, S)
-        stacked = self._stacked(params)
+        stacked = stacked_params(params)
         aux = torch.zeros((), device=h.device)
         for i in range(c.n_layers):
-            h, _, a = self._block_full(h, _layer(stacked, i), positions, positions3)
+            h, _, a = self._block_full(h, layer_params(stacked, i), positions, positions3)
             aux = aux + a
         h = L.rms_norm(h, params["final_norm"])
         ce = L.chunked_cross_entropy(h, self._lm_head(params), batch["labels"])
@@ -231,10 +254,10 @@ class TransformerLM:
         B, S = batch["tokens"].shape
         h = self._embed(params, batch)
         positions, positions3 = self._positions(batch, B, S)
-        stacked = self._stacked(params)
+        stacked = stacked_params(params)
         ks, vs = [], []
         for i in range(self.cfg.n_layers):
-            h, (k, v), _ = self._block_full(h, _layer(stacked, i), positions, positions3)
+            h, (k, v), _ = self._block_full(h, layer_params(stacked, i), positions, positions3)
             ks.append(k)
             vs.append(v)
         h = L.rms_norm(h, params["final_norm"])
@@ -252,7 +275,7 @@ class TransformerLM:
         h = self._embed(params, batch)                     # (B, 1, d)
         positions = torch.full((B, 1), t, dtype=torch.int64, device=h.device)
         positions3 = positions[None].expand(3, B, 1) if c.mrope else None
-        stacked = self._stacked(params)
+        stacked = stacked_params(params)
 
         k_all, v_all = cache["k"], cache["v"]
         Smax = k_all.shape[2]
@@ -263,7 +286,7 @@ class TransformerLM:
         valid_len = min(t + 1, Smax)
 
         for i in range(c.n_layers):
-            p = _layer(stacked, i)
+            p = layer_params(stacked, i)
             x = L.rms_norm(h, p["attn_norm"])
             q, k, v = self._qkv(x, p, positions, positions3)
             # in place, where the reference's dynamic_update_slice makes a new cache

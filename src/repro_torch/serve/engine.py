@@ -67,9 +67,12 @@ class ServeEngine:
         self.device = _device(device)
         self.model = get_model(cfg, attn=attn)
         self.params = {k: v.to(self.device) for k, v in params.items()}
-        # which cache entries grow along a sequence axis (axes tagged "sp")
+        # the cache entries that grow during decode (the model names them) and
+        # their sequence axis (tagged "sp" in the template). Whisper's cross
+        # K/V carry "sp" too but stay the encoder's length, where the
+        # reference's engine pads them
         tmpl = self.model.cache_templates(1, 8)
-        self._grow_axes = {k: v.axes.index("sp") for k, v in tmpl.items() if "sp" in v.axes}
+        self._grow_axes = {k: tmpl[k].axes.index("sp") for k in self.model.GROWING_CACHE}
 
     # ------------------------------------------------------------------
     @classmethod
@@ -101,8 +104,10 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def _pad_cache(self, cache: Dict, extra: int) -> Dict:
-        """Extend growing cache arrays by ``extra`` positions (zeros), once, so
-        the decode steps can write into them in place."""
+        """Extend the growing cache arrays by ``extra`` positions (zeros),
+        once, so the decode steps can write into them in place: the
+        transformer's ``k``/``v``, zamba2's ``attn_k``/``attn_v``, whisper's
+        ``self_k``/``self_v``; falcon-mamba's O(1) states not at all."""
         out = dict(cache)
         for k, ax in self._grow_axes.items():
             arr = cache[k]
@@ -116,12 +121,14 @@ class ServeEngine:
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, n_new: int,
                  extra_inputs: Optional[Dict] = None) -> GenerateResult:
-        """Greedy generation. prompts: (B, S) int32."""
+        """Greedy generation. prompts: (B, S) int32. ``extra_inputs`` (such as
+        whisper's ``frames``) go into the prefill batch: a tensor as it is (a
+        bf16 one too), anything else through numpy, moved to the device."""
         B, S = prompts.shape
         batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32), device=self.device)}
         if extra_inputs:
-            batch.update({k: torch.as_tensor(np.asarray(v), device=self.device)
-                          for k, v in extra_inputs.items()})
+            batch.update({k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
+                          .to(self.device) for k, v in extra_inputs.items()})
         logits, cache = self.model.prefill(self.params, batch)
         cache = self._pad_cache(cache, n_new)
         toks = [logits.argmax(dim=-1).to(torch.int32)]

@@ -19,9 +19,10 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels.ref import mha_reference as jax_mha_reference
 from repro.models import layers as JL
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention, route
 from repro_torch.models import layers as TL
 
 # (B, S, H, D, causal, window): tests/test_flash_kernel.py:12-19, block sizes dropped
@@ -32,6 +33,10 @@ CASES = [
     (1, 1024, 1, 128, True, 0),
     (1, 256, 2, 256, True, 0),
 ]
+# every head dim an attending reference config uses, published and smoke: 128
+# (the seven transformers), 64 (whisper-medium), 80 (zamba2-2.7b), 16 (smoke)
+REF_HEAD_DIMS = sorted({get_config(a, smoke=s).hd for a in ARCH_IDS for s in (False, True)
+                        if get_config(a).n_heads})
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
 
@@ -121,6 +126,33 @@ def test_fully_masked_rows_average_v_uniformly():
     want = jax_mha_reference(jq, jk, jv, causal=False, window=4)
     _close(got, want, 2e-5)
     torch.testing.assert_close(got[0, -1, 0], v[0, :, 0].mean(dim=0))
+
+
+def test_kernel_head_dims_cover_every_reference_config():
+    assert REF_HEAD_DIMS == [16, 64, 80, 128]
+    assert set(REF_HEAD_DIMS) <= set(HEAD_DIMS)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D", REF_HEAD_DIMS)
+def test_flash_plain_path_matches_jax_at_reference_head_dims(D, dtype):
+    """Causal self attention with ragged S and non-causal Sq != Sk (whisper's
+    cross attention) at each head dim a reference config uses."""
+    for shape_q, shape_k, causal in (((2, 77, 3, D), (2, 77, 3, D), True),
+                                     ((1, 24, 2, D), (1, 150, 2, D), False)):
+        (q, k, v), (jq, jk, jv) = _inputs(shape_q, shape_k, dtype, D)
+        got = flash_attention(q, k, v, causal=causal)
+        assert got.dtype == q.dtype and got.shape == q.shape
+        _close(got, jax_mha_reference(jq, jk, jv, causal=causal), DTYPES[dtype][2])
+
+
+def test_head_dim_80_takes_the_simt_route():
+    """zamba2-2.7b's head dim 80: the wrapper accepts it, and bf16 at D 80
+    takes the SIMT kernel (the sm90 route is built for D 64 and 128)."""
+    assert 80 in HEAD_DIMS
+    q = torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16)
+    assert route(q, q, q) == "simt"
+    assert route(q[..., :64], q[..., :64], q[..., :64]) == "sm90"
 
 
 def test_wrapper_checks_and_refusals():

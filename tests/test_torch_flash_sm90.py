@@ -152,7 +152,7 @@ def test_route_takes_sm90_for_aligned_bf16(D):
     assert one.stride() == (D + 8, D + 8, D + 8, 1) and fa.route(one, one, one) == "sm90"
 
 
-@pytest.mark.parametrize("D", [16, 32, 256])
+@pytest.mark.parametrize("D", [16, 32, 80, 256])
 def test_route_takes_simt_for_other_head_dims(D):
     q, k, v = (_bf16((1, 40, 2, D), s) for s in range(3))
     assert fa.route(q, k, v) == "simt"

@@ -248,6 +248,18 @@ FLASH_CASES = [
     # 4 left-padded to 2032 (not a multiple of either tile) and to 512 tokens
     (4, 2032, 2032, 28, 128, True, 0),
     (4, 512, 512, 28, 128, True, 0),
+    # head dim 80 (zamba2-2.7b's shared attention; the simt route in both
+    # dtypes): ragged, Sq != Sk, a window, and the family phase's prefill
+    (2, 333, 333, 4, 80, True, 0),
+    (1, 64, 300, 2, 80, False, 0),
+    (1, 200, 200, 2, 80, True, 64),
+    (4, 1024, 1024, 32, 80, True, 0),
+    # whisper-medium's three attentions at head dim 64: the encoder (1500
+    # frames, bidirectional), the decoder's causal self attention, and cross
+    # attention from 64 decoder tokens to the 1500 frames
+    (4, 1500, 1500, 16, 64, False, 0),
+    (4, 64, 64, 16, 64, True, 0),
+    (4, 64, 1500, 16, 64, False, 0),
 ]
 
 
@@ -309,6 +321,23 @@ def test_flash_attention_misaligned_slice_takes_simt(cuda, D):
     assert flash_attention.route_launches()["simt"] - before["simt"] == 1
     want = ref.mha_reference(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_route_rules_by_head_dim(cuda):
+    """bf16 at D 64 and 128 takes sm90; D 80 and the other head dims, and
+    float32 at any, take simt; both launch and match the plain version."""
+    for D in flash_attention.HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv((1, 70, 2, D), (1, 70, 2, D), dt, D, cuda)
+            want = "sm90" if dt == torch.bfloat16 and D in flash_attention.SM90_HEAD_DIMS else "simt"
+            assert flash_attention.route(q, k, v) == want
+            before = flash_attention.route_launches()[want]
+            got = flash_attention.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            assert flash_attention.route_launches()[want] == before + 1
+            tol = 2e-5 if dt == torch.float32 else 2e-2
+            torch.testing.assert_close(got.float(), ref.mha_reference(q, k, v).float(),
+                                       rtol=tol, atol=tol)
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):

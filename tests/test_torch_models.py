@@ -1,5 +1,6 @@
 """The port's transformer family (``repro_torch.models``) against the JAX
-package's (``repro.models``), on the CPU.
+package's (``repro.models``), on the CPU; the parameter and cache templates,
+``init_params``/``init_cache`` and the loss gradients of all ten configs.
 
 For each of the seven transformer smoke configs, float32 copies
 (``param_dtype = act_dtype = "float32"``) are made in both packages; the JAX
@@ -29,7 +30,6 @@ from repro_torch.models import api
 
 TRANSFORMERS = ["qwen2-7b", "qwen2-vl-7b", "granite-20b", "phi4-mini-3.8b",
                 "deepseek-coder-33b", "mixtral-8x7b", "grok-1-314b"]
-OTHERS = sorted(set(ARCH_IDS) - set(TRANSFORMERS))
 TOL = 1e-4
 TRAIN = (2, 32)     # (B, S) of the loss batch
 PREFILL = (2, 16)
@@ -133,12 +133,11 @@ def test_prefill_decode_consistency(arch):
     np.testing.assert_allclose(logits_d.numpy(), logits_f.numpy(), rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("arch", TRANSFORMERS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_templates_match_jax(arch):
     """Same names, shapes, dtypes, axes and init recipes as the reference, and
-    the same published parameter counts."""
-    from repro.models.transformer import TransformerLM as JaxTransformerLM
-    jt = JaxTransformerLM(jax_get_config(arch)).param_templates()
+    the same published parameter counts, for all ten configs."""
+    jt = japi.get_model(jax_get_config(arch)).param_templates()
     tt = api.get_model(get_config(arch)).param_templates()
     assert jt.keys() == tt.keys()
     for name in jt:
@@ -149,10 +148,60 @@ def test_param_templates_match_jax(arch):
     assert get_config(arch).active_param_count() == jax_get_config(arch).active_param_count()
 
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.get_model(get_config(arch, smoke=True))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_params_and_cache_cover_every_config(arch):
+    """``init_params`` and ``init_cache`` build every config's smoke size;
+    the cache templates equal the reference's."""
+    cfg = get_config(arch, smoke=True)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0))
+    tmpl = api.get_model(cfg).param_templates()
+    assert params.keys() == tmpl.keys()
+    for k, spec in tmpl.items():
+        assert tuple(params[k].shape) == spec.shape and params[k].dtype == getattr(torch, spec.dtype)
+    cache = api.init_cache(cfg, batch=2, seq=24, device="cpu")
+    jt = japi.get_model(jax_get_config(arch, smoke=True)).cache_templates(2, 24)
+    tt = api.get_model(cfg).cache_templates(2, 24)
+    assert jt.keys() == tt.keys() == cache.keys()
+    for k in jt:
+        assert (jt[k].shape, jt[k].dtype, jt[k].axes) == (tt[k].shape, tt[k].dtype, tt[k].axes), k
+        if k != "len":
+            assert tuple(cache[k].shape) == tt[k].shape and not cache[k].any()
+    assert cache["len"] == 0
+
+
+# (arch, rtol, atol) of the gradient comparison: float32 sums in another
+# order through a few layers; atol sits far below the gradients' scale
+GRAD_CASES = [("qwen2-7b", 1e-3, 1e-6), ("falcon-mamba-7b", 1e-3, 1e-6),
+              ("zamba2-2.7b", 1e-3, 1e-6), ("whisper-medium", 1e-3, 1e-6)]
+
+
+@pytest.mark.parametrize("arch,rtol,atol", GRAD_CASES)
+def test_loss_gradients_match_jax(arch, rtol, atol):
+    """``loss`` keeps the autograd graph: with attn="plain", the gradient of
+    every parameter matches ``jax.grad`` of the reference's loss (what its
+    train step differentiates, ``src/repro/train/step.py:40-41``). Under
+    attn="flash" a differentiated loss of a model that attends is refused:
+    the kernel is forward-only."""
+    jcfg = _fp32(jax_get_config(arch, smoke=True))
+    tcfg = _fp32(get_config(arch, smoke=True))
+    jp = japi.init_params(jcfg, jax.random.PRNGKey(3))
+    jb = japi.make_batch(jcfg, JaxShapeCell("t", "train", 16, 2), jax.random.PRNGKey(4))
+    jm = japi.get_model(jcfg)
+    jloss, jgrad = jax.value_and_grad(lambda p: jm.loss(p, jb))(jp)
+    tp = {k: v.requires_grad_() for k, v in
+          api.params_from_reference({k: np.asarray(v) for k, v in jp.items()}, "cpu").items()}
+    tb = _to_torch(jb)
+    loss = api.get_model(tcfg, attn="plain").loss(tp, tb)
+    assert loss.requires_grad
+    _close(float(loss), float(jloss))
+    names = sorted(tp)
+    grads = torch.autograd.grad(loss, [tp[k] for k in names])
+    for k, g in zip(names, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jgrad[k]), rtol=rtol, atol=atol,
+                                   err_msg=k)
+    if tcfg.family != "ssm":
+        with pytest.raises(RuntimeError, match="forward-only"):
+            api.get_model(tcfg, attn="flash").loss(tp, tb)
 
 
 def test_init_params_is_seeded_and_follows_the_recipe():
