@@ -89,6 +89,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at 9a's encoder shape (sm90, D 64, bidirectional) beside its bound and
    ``scaled_dot_product_attention``. The results go on a JSON line of their
    own (``families``).
+10. training: 10a trains Qwen2-7B's published widths, depth cut from 28
+   decoder layers to 2 (full-vocabulary embed and lm_head kept; bf16
+   parameters drawn on the card from the seed), the first 8 steps of AdamW
+   (lr 3e-4, ``OptimizerConfig``'s 100 warmup steps) on
+   ``SyntheticTokens`` (vocab 152064, 4 x 1024 tokens a step, read through
+   ``PrefetchIterator``), ``make_train_step(microbatches=2,
+   grad_dtype="float32")``, remat "nothing", attn "plain", float32 matmuls on
+   TF32 tensor cores (the phase sets ``allow_tf32`` and restores it after).
+   ``CheckpointManager`` over the port's store (compressed only, parameters
+   only) writes behind after step 4 (the ZipNN lane, ``split``) and
+   synchronously after step 8 (BitX against step 4, ``xor_split``); step 8 is
+   restored from the store (``merge_xor`` and ``merge``), bit-equal to the
+   live parameters, with the same eval loss. The loss must fall; one more
+   step's loss and grad norm under remat "none" and "dots" must equal
+   "nothing"'s within 1e-5. Printed: step ms and tokens/s (the median of
+   steps 3-8, and apart that of steps 2-4, which run beside no save), the
+   model-FLOP share (6·N·tokens over the step time at the bf16 peak, N the
+   matmul weights: not the embedding, a gather), peak device memory
+   per remat policy, step ms beside the write-behind save and without it, save
+   MB/s (file write and ingest apart), restore MB/s, the second checkpoint's
+   stored/raw ratio and the phase's storage-kernel launches. 10b runs
+   ``python -m repro_torch.launch.train --arch qwen2-7b --smoke --steps 8
+   --ckpt-every 3 --fail-at 5`` twice as child processes on the card: the
+   first must exit 42 at its injected crash, the second resume from step 3,
+   end at step 8 and exit 0, its checkpoints holding AdamW state and
+   BitX-chained to the first in the store, the kernel library loaded from
+   phase 2's build. The results go on a JSON line of their own (``train``).
 
 Phase 3 also holds both flash-attention kernels (routes ``sm90`` and ``simt``)
 against their plain version (``ref.mha_reference``) at the reference tests'
@@ -100,8 +127,9 @@ causal) and at S 2048, beside their bound, the plain version and
 ``torch.nn.functional.scaled_dot_product_attention``, with the wrapper's host
 time per call.
 
-The last lines are the hub server's line, the families line, the card's name
-and power limit, the kernels line (one JSON object) and the result line
+The last lines are the hub server's line, the families line, the train line,
+the card's name and power limit, the kernels line (one JSON object) and the
+result line
 ``{"ok": true, "device": {...}}``. Model files and stores go to a temporary
 directory outside the repository, removed at the end.
 """
@@ -131,20 +159,25 @@ from pathlib import Path  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import falcon_mamba_7b, qwen2_7b, whisper_medium, zamba2_2_7b  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.configs import (falcon_mamba_7b, get_config, qwen2_7b, whisper_medium,  # noqa: E402
+                                 zamba2_2_7b)
 from repro_torch.core import bitx  # noqa: E402
 from repro_torch.core.bitdistance import (bit_distance_files, calibration_heatmap,  # noqa: E402
                                           hamming_total_arrays, shape_signature)
 from repro_torch.core.bitx import TorchBackend  # noqa: E402
 from repro_torch.core.pipeline import ZLLMStore  # noqa: E402
 from repro_torch.corpus import CorpusSpec, make_base_tensors, make_finetune, write_repo  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, PrefetchIterator, SyntheticTokens  # noqa: E402
 from repro_torch.formats.safetensors import SafetensorsFile  # noqa: E402
 from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.models import ssm, transformer, whisper  # noqa: E402
 from repro_torch.models.api import get_model, init_params  # noqa: E402
+from repro_torch.optim.optimizers import AdamW, OptimizerConfig, make_optimizer  # noqa: E402
 from repro_torch.serve.engine import RequestBatcher, ServeEngine  # noqa: E402
+from repro_torch.train.step import make_eval_step, make_train_step  # noqa: E402
 
 DEVICE = "cuda"
 SEED = 0  # every weight and input of the run is drawn from generators seeded from it
@@ -1805,6 +1838,332 @@ def phase_families(tmp: str, seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training on the card, checkpoints BitX-chained through the store
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 2                # Qwen2-7B's depth cut (of 28), as in phase 4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 1024, 4, 2
+TRAIN_STEPS = 8
+TRAIN_ASYNC_AT = 4              # save_async after this step (overlaps the next); save at the last
+TRAIN_LR = 3e-4                 # the training CLI's default; warmup and schedule are
+                                # OptimizerConfig's (100 warmup steps of 10,000): the
+                                # first steps of a real run
+TRAIN_RUN = "qwen2-7b-train"
+TRAIN_REMAT_TOL = 1e-5          # relative: loss and grad norm under "none" and "dots" vs "nothing"
+TRAIN_EVAL_TOL = 1e-6           # relative: eval loss on the restored params vs the live ones
+# the training entry point a user runs, and its crash-and-resume demo
+TRAIN_CLI = ("-m", "repro_torch.launch.train", "--arch", "qwen2-7b", "--smoke", "--steps", "8",
+             "--ckpt-every", "3", "--fail-at", "5")
+TRAIN_CLI_RUN = "qwen2-7b-smoke-run"
+TRAIN_CLI_S = 300               # each CLI run must end within this
+_CKPT_LINE = re.compile(r"\[train\] checkpoint (\S+): base (\S+) \((\w+)\), (\d+) BitX / (\d+) ZipNN")
+
+
+class _TimedManager(CheckpointManager):
+    """The checkpoint manager, with the start and end of each save recorded."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.spans = {}
+
+    def save(self, step, params, opt_state=None):
+        t0 = time.perf_counter()
+        try:
+            return super().save(step, params, opt_state)
+        finally:
+            self.spans[step] = (t0, time.perf_counter())
+
+
+class _NoUpdate:
+    """An optimizer that leaves parameters and state as they are: a train step
+    under it gives the loss and gradient norm at the parameters it is given."""
+
+    def update(self, grads, state, params):
+        return params, state
+
+
+def _train_full_width(tmp: str, seed: int, smi: str) -> dict:
+    """10a: the 2-layer Qwen2-7B-width model trained 8 steps on the card, a
+    write-behind checkpoint and a synchronous one through the store
+    (compressed only), a restore checked bit for bit, and the remat policies."""
+    cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=TRAIN_LAYERS)
+    log(f"train: {cfg.name} widths (d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads, QKV bias, vocab {cfg.vocab}, {cfg.param_dtype} params); depth "
+        f"cut from {qwen2_7b.CONFIG.n_layers} decoder layers to {cfg.n_layers}; {cfg.optimizer} "
+        f"(lr {TRAIN_LR}, warmup {OptimizerConfig.warmup_steps}, cosine to step "
+        f"{OptimizerConfig.total_steps}); global batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, float32 gradient accumulation, "
+        f"remat 'nothing', attn 'plain'; float32 matmuls on TF32 tensor cores "
+        f"(torch.backends.cuda.matmul.allow_tf32 = True, set by this phase)")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 10)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)
+    n_params = sum(v.numel() for v in params.values())
+    model = get_model(cfg, attn="plain", remat_policy="nothing")
+    opt = make_optimizer(OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR))
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model, opt, microbatches=TRAIN_MICRO, grad_dtype="float32")
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=seed))
+    torch.cuda.synchronize()
+    log(f"train: {n_params / 1e9:.3f} G params drawn on the card and AdamW state made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def to_card(batch):
+        return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+    store = ZLLMStore(os.path.join(tmp, "train-store"), workers=min(16, os.cpu_count() or 1),
+                      entropy_procs=0)
+    mgr = _TimedManager(os.path.join(tmp, "train-run"), store=store, run_id=TRAIN_RUN,
+                        keep_plain=False, save_optimizer=False)
+    hist = []
+    it = PrefetchIterator(iter(data), prefetch=2)
+    try:
+        # the main path: counts from 0 just before, read just after
+        _build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(1, TRAIN_STEPS + 1):
+            batch = to_card(next(it))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            t1 = time.perf_counter()
+            hist.append({"step": step, "loss": loss, "grad_norm": gnorm, "ms": (t1 - t0) * 1e3,
+                         "span": (t0, t1)})
+            if step == TRAIN_ASYNC_AT:
+                t0 = time.perf_counter()
+                mgr.save_async(step, params, opt_state)
+                snapshot_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        mgr.wait()
+        waited_s = time.perf_counter() - t0
+        mgr.save(TRAIN_STEPS, params, opt_state)
+    finally:
+        it.close()
+        mgr.wait()
+    path_launches = _build.launch_counts()
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+        raise AssertionError(f"train: non-finite loss or grad norm: {hist}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"train: the loss did not fall: {[h['loss'] for h in hist]}")
+    r1, r2 = store.results
+    if not (r1.base_id is None and r1.n_zipnn > 0):
+        raise AssertionError(f"train: the first checkpoint did not take the ZipNN lane: {r1}")
+    if not (r2.base_source == "declared" and r2.n_bitx > 0):
+        raise AssertionError(f"train: the second checkpoint was not BitX-coded against the "
+                             f"first: {r2}")
+    for k in ("split", "xor_split"):
+        if path_launches[k] == 0:
+            raise AssertionError(f"train: {k} never launched by the checkpoints: {path_launches}")
+
+    # restore of the last checkpoint from compressed-only storage
+    c0 = _build.launch_counts()
+    t0 = time.perf_counter()
+    step, restored, _ = mgr.restore(TRAIN_STEPS)
+    restore_s = time.perf_counter() - t0
+    restore_launches = {k: v - c0[k] for k, v in _build.launch_counts().items()}
+    for k, v in restore_launches.items():
+        path_launches[k] += v
+    if step != TRAIN_STEPS or os.path.exists(mgr.ckpt_path(TRAIN_STEPS)):
+        raise AssertionError(f"train: restored step {step}; the plain file must be gone")
+    if restore_launches["merge_xor"] == 0 or restore_launches["merge"] == 0:
+        raise AssertionError(f"train: the restore did not launch merge_xor and merge: "
+                             f"{restore_launches}")
+    for k, v in params.items():
+        if not torch.equal(restored[k], v.cpu()):
+            raise AssertionError(f"train: restored {k} is not bit-equal to the live tensor")
+    ev = make_eval_step(model)
+    eb = to_card(data.batch_at(TRAIN_STEPS))
+    live = float(ev(params, eb)["loss"])
+    restored = {k: v.to(DEVICE) for k, v in restored.items()}
+    again = float(ev(restored, eb)["loss"])
+    del restored
+    torch.cuda.empty_cache()
+    if not abs(again - live) <= TRAIN_EVAL_TOL * abs(live):
+        raise AssertionError(f"train: eval loss {again} on the restored params, {live} live")
+
+    # one more step's loss and grad norm under each remat policy, at the same
+    # params and batch (the update is skipped, so all three start alike)
+    remat = {}
+    for policy in ("nothing", "none", "dots"):
+        f = make_train_step(get_model(cfg, attn="plain", remat_policy=policy), _NoUpdate(),
+                            microbatches=TRAIN_MICRO, grad_dtype="float32")
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, _, m = f(params, opt_state, eb)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        remat[policy] = {"loss": loss, "grad_norm": gnorm,
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_GiB": torch.cuda.max_memory_allocated() / 2**30,
+                         "above_resident_GiB": (torch.cuda.max_memory_allocated() - resident) / 2**30}
+    for policy in ("none", "dots"):
+        for key in ("loss", "grad_norm"):
+            a, b = remat[policy][key], remat["nothing"][key]
+            if not abs(a - b) <= TRAIN_REMAT_TOL * abs(b):
+                raise AssertionError(f"train: {key} under remat {policy!r} is {a}, under "
+                                     f"'nothing' {b}")
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = float(np.median([h["ms"] for h in hist[2:]]))
+    a0, a1 = mgr.spans[TRAIN_ASYNC_AT]
+    during = [h["ms"] for h in hist if h["step"] > TRAIN_ASYNC_AT and h["span"][0] < a1]
+    without = [h["ms"] for h in hist[1:TRAIN_ASYNC_AT]]
+    quiet_ms = float(np.median(without))
+    # N counts the matmul weights only: the embedding table is a gather, norms
+    # and biases are elementwise; attention's score and value products are not
+    # in 6 N either
+    n_matmul = sum(v.numel() for k, v in params.items()
+                   if k == "lm_head" or k.startswith("blocks.w"))
+
+    def flop_share(ms):
+        return 6 * n_matmul * tokens / (ms / 1e3 * BF16_FLOP_PER_S)
+
+    saves = {}
+    for st, (s0, s1) in sorted(mgr.spans.items()):
+        r = r1 if st == TRAIN_ASYNC_AT else r2
+        raw, ingest = r.raw_bytes, r.ingest_seconds
+        saves[st] = {"raw_bytes": raw, "seconds": s1 - s0, "MBps": raw / (s1 - s0) / 1e6,
+                     "write_s": s1 - s0 - ingest, "write_MBps": raw / (s1 - s0 - ingest) / 1e6,
+                     "ingest_s": ingest, "ingest_MBps": raw / ingest / 1e6}
+    out = {
+        "card": smi, "n_params": n_params, "n_matmul_params": n_matmul, "layers": TRAIN_LAYERS,
+        "seq": TRAIN_SEQ,
+        "global_batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO, "matmul_precision": "tf32",
+        "losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+        "step_ms": [h["ms"] for h in hist], "step_ms_median_3_8": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "model_flop_share": flop_share(step_ms),
+        "model_flop_share_formula": (f"6 * {n_matmul} matmul params (lm_head and the blocks' "
+                                     f"weight matrices; not the {params['embed'].numel()} of the "
+                                     f"embedding gather) * {tokens} tokens / "
+                                     f"({step_ms / 1e3:.4f} s * {BF16_FLOP_PER_S:.3e} FLOP/s)"),
+        "step_ms_median_2_4_no_save": quiet_ms, "tokens_per_s_no_save": tokens / (quiet_ms / 1e3),
+        "model_flop_share_no_save": flop_share(quiet_ms),
+        "train_peak_GiB": train_peak / 2**30,
+        "step_ms_during_async_save": during, "step_ms_without_save": without,
+        "async_snapshot_s": snapshot_s, "async_save_s": a1 - a0, "waited_for_async_s": waited_s,
+        "saves": saves, "restore_s": restore_s, "restore_MBps": r2.raw_bytes / restore_s / 1e6,
+        "second_ckpt": {"stored_bytes": r2.stored_bytes, "raw_bytes": r2.raw_bytes,
+                        "ratio": r2.stored_bytes / r2.raw_bytes, "n_bitx": r2.n_bitx,
+                        "n_zipnn": r2.n_zipnn, "n_raw": r2.n_raw, "n_dedup": r2.n_dedup},
+        "first_ckpt": {"stored_bytes": r1.stored_bytes, "raw_bytes": r1.raw_bytes,
+                       "n_zipnn": r1.n_zipnn},
+        "eval_loss_live": live, "eval_loss_restored": again, "remat": remat,
+        "launches": path_launches, "restore_launches": restore_launches,
+    }
+    store.close()
+    log(f"train: losses {', '.join(f'{x:.4f}' for x in out['losses'])}; grad norms "
+        f"{', '.join(f'{x:.3f}' for x in out['grad_norms'])}")
+    log(f"train: step ms {', '.join(f'{x:.1f}' for x in out['step_ms'])}; median of steps 3-8 "
+        f"{step_ms:.1f} ms, {out['tokens_per_s']:.0f} tokens/s; model-FLOP share "
+        f"{out['model_flop_share']:.4f} = {out['model_flop_share_formula']} (aside, steps "
+        f"2-{TRAIN_ASYNC_AT} with no save running: median {quiet_ms:.1f} ms, "
+        f"{out['tokens_per_s_no_save']:.0f} tokens/s, share {out['model_flop_share_no_save']:.4f}); "
+        f"peak device memory {train_peak / 2**30:.2f} GiB; card: {smi}")
+    log(f"train: write-behind checkpoint at step {TRAIN_ASYNC_AT}: snapshot to the host "
+        f"{snapshot_s:.2f} s, save {a1 - a0:.1f} s in the background; steps overlapping it "
+        f"{', '.join(f'{x:.1f}' for x in during)} ms, steps 2-{TRAIN_ASYNC_AT} without a save "
+        f"{', '.join(f'{x:.1f}' for x in without)} ms; step {TRAIN_STEPS} waited {waited_s:.1f} s "
+        f"for it")
+    for st, sv in saves.items():
+        log(f"train: checkpoint {st} ({sv['raw_bytes'] / 1e9:.3f} GB): save {sv['MBps']:.1f} MB/s "
+            f"({sv['seconds']:.1f} s) = file write, hash and manifest {sv['write_s']:.1f} s "
+            f"({sv['write_MBps']:.1f} MB/s) + store ingest {sv['ingest_s']:.1f} s "
+            f"({sv['ingest_MBps']:.1f} MB/s); card: {smi}")
+    log(f"train: checkpoint {TRAIN_STEPS} BitX-coded against checkpoint {TRAIN_ASYNC_AT} "
+        f"({r2.n_bitx} BitX, {r2.n_zipnn} ZipNN, {r2.n_raw} raw, {r2.n_dedup} dedup tensors), "
+        f"stored/raw {out['second_ckpt']['ratio']:.4f}; checkpoint {TRAIN_ASYNC_AT} (ZipNN) "
+        f"{r1.stored_bytes / r1.raw_bytes:.4f}; restore from compressed-only storage "
+        f"{out['restore_MBps']:.1f} MB/s ({restore_s:.1f} s), bit-equal to the live params, "
+        f"eval loss {again:.6f} restored vs {live:.6f} live")
+    log(f"train: remat policies at step {TRAIN_STEPS}'s params and batch {TRAIN_STEPS}: " + "; ".join(
+        f"{p}: loss {r['loss']:.6f}, grad norm {r['grad_norm']:.6f}, {r['ms']:.0f} ms, peak "
+        f"{r['peak_GiB']:.2f} GiB ({r['above_resident_GiB']:.2f} GiB above the resident state)"
+        for p, r in remat.items()) + f"; card: {smi}")
+    log(f"train: storage kernel launches in phase 10a {path_launches} (the restore's "
+        f"{restore_launches})")
+    return out
+
+
+def _train_cli(tmp: str, smi: str) -> dict:
+    """10b: ``python -m repro_torch.launch.train`` on the card, killed by its
+    injected crash (exit 42), then the same command resumes and ends."""
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(here / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    run_dir = os.path.join(tmp, "cli-run")
+    cmd = [sys.executable, *TRAIN_CLI, "--store", os.path.join(tmp, "cli-store"),
+           "--run-dir", run_dir]
+    lib = _build.library_path()
+    lib_before = os.stat(lib)
+    runs = []
+    for want in (42, 0):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=str(here),
+                              timeout=TRAIN_CLI_S)
+        runs.append({"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                     "stdout": proc.stdout})
+        if proc.returncode != want or f"[train] device {DEVICE}" not in proc.stdout:
+            raise AssertionError(f"train CLI: {' '.join(cmd)} exited {proc.returncode}, want "
+                                 f"{want} on {DEVICE}\n--- stdout ---\n{proc.stdout}"
+                                 f"--- stderr (tail) ---\n{proc.stderr[-6000:]}")
+    first, second = runs
+    ckpts = [_CKPT_LINE.search(ln).groups() for r in runs for ln in r["stdout"].splitlines()
+             if _CKPT_LINE.search(ln)]
+    checks = {
+        "the first run crashed at step 5": "injected failure at step 5" in first["stdout"],
+        "the second resumed from step 3": "[train] resumed from step 3" in second["stdout"],
+        "and ended at step 8": "[train] done: 5 steps" in second["stdout"],
+        "checkpoint 3 took the ZipNN lane": len(ckpts) == 3 and ckpts[0][1] == "-"
+        and int(ckpts[0][4]) > 0,
+        "checkpoints 6 and 8 declared it as their base and took the BitX lane":
+            len(ckpts) == 3 and all(c[2] == "declared" and c[1].endswith("checkpoint-00000003"
+                                                                         ".safetensors")
+                                    and int(c[3]) > 0 for c in ckpts[1:]),
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"train CLI: {what} failed\n--- first run ---\n{first['stdout']}"
+                                 f"--- second run ---\n{second['stdout']}")
+    arch = get_config("qwen2-7b", smoke=True)
+    tmpl = AdamW(OptimizerConfig()).state_templates(get_model(arch).param_templates())
+    step, cli_params, cli_opt = CheckpointManager(run_dir, run_id=TRAIN_CLI_RUN).restore(
+        opt_template=tmpl)
+    if step != 8 or int(cli_opt["step"]) != 8 or cli_opt["m"].keys() != cli_params.keys():
+        raise AssertionError(f"train CLI: checkpoint {step} holds no AdamW state of step 8")
+    lib_after = os.stat(lib)
+    if (lib_after.st_ino, lib_after.st_mtime_ns) != (lib_before.st_ino, lib_before.st_mtime_ns):
+        raise AssertionError(f"train CLI: the run rebuilt {lib} instead of loading phase 2's build")
+    log("train CLI: " + "; ".join(checks) + f"; checkpoint 8 holds AdamW state at step "
+        f"{int(cli_opt['step'])}; runs took {first['seconds']:.1f} s and "
+        f"{second['seconds']:.1f} s; kernel library loaded from phase 2's build, not rebuilt")
+    return {"rc": [r["rc"] for r in runs], "seconds": [r["seconds"] for r in runs],
+            "checkpoints": [{"file": c[0], "base": c[1], "source": c[2], "n_bitx": int(c[3]),
+                             "n_zipnn": int(c[4])} for c in ckpts]}
+
+
+def phase_train(tmp: str, seed: int, smi: str) -> dict:
+    """Phase 10: 10a (full width) and 10b (the CLI), under the matmul
+    precision this phase sets (TF32 for float32 matmuls), restored after."""
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = _train_full_width(tmp, seed, smi)
+        out["cli"] = _train_cli(tmp, smi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train: phase 10 took {out['seconds']:.1f} s; card: {smi}")
+    return out
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -1850,18 +2209,29 @@ def main() -> int:
         families = phase_families(tmp, SEED, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-train-")
+    try:
+        train = phase_train(tmp, SEED, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # no path of the JAX package calls xor_2d: its count is phase 3's
     launches["xor"] = report["xor"]["launches"]
     log(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     launched_by = {"hamming": "phases 4b and 6 (bit distance, calibration)",
                    "xor": "phase 3 (kernel checks): no path of the JAX package calls xor_2d"}
+    by_phase = {}
+    for name in TorchBackend.KERNELS:  # the store kernels: phase 4's and phase 10's checkpoints
+        by_phase[name] = {"4": launches[name], "10": train["launches"][name]}
+        launches[name] += train["launches"][name]
+        launched_by[name] = "phases 4 (store) and 10a (training checkpoints and their restore)"
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": launches[name], "launched_by": launched_by.get(name, "phase 4 (store)"),
+            "launches": launches[name], "launched_by": launched_by[name],
+            **({"launches_by_phase": by_phase[name]} if name in by_phase else {}),
             "matched": True, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"],
@@ -1898,7 +2268,7 @@ def main() -> int:
         })
     print(json.dumps({"hub_server": hub}))
     print(json.dumps({"families": families}))
-    print(json.dumps({"hub_server": hub}))
+    print(json.dumps({"train": train}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -29,22 +29,24 @@ __all__ = [
 ]
 
 
-def get_model(cfg: ArchConfig, attn: str = "flash"):
+def get_model(cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing"):
     """The model of ``cfg``'s family. ``attn`` picks the full-sequence
     attention of the models that attend: the CUDA kernel (``"flash"``, the
     default) or the plain PyTorch version (``"plain"``); ``MambaLM`` has no
-    attention and ignores it."""
+    attention and ignores it. ``remat_policy`` (``"nothing"``, ``"dots"`` or
+    ``"none"``, the reference's) sets what the backward pass of ``loss``
+    recomputes."""
     from repro_torch.models.ssm import MambaLM, Zamba2LM
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.models.whisper import WhisperModel
 
     if cfg.family == "encdec":
-        return WhisperModel(cfg, attn=attn)
+        return WhisperModel(cfg, attn, remat_policy)
     if cfg.family == "ssm":
-        return MambaLM(cfg, attn=attn)
+        return MambaLM(cfg, attn, remat_policy)
     if cfg.family == "hybrid":
-        return Zamba2LM(cfg, attn=attn)
-    return TransformerLM(cfg, attn=attn)
+        return Zamba2LM(cfg, attn, remat_policy)
+    return TransformerLM(cfg, attn, remat_policy)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,10 @@ on tensors over flat parameter dicts (the reference's names and layouts).
 
 RMS/layer norm, RoPE (partial rotary) and M-RoPE, ``repeat_kv``, masked
 softmax ``attention`` with a chunked online-softmax path for long sequences,
-SwiGLU / GELU MLPs, top-k MoE with capacity-limited scatter dispatch, and a
-chunked cross-entropy that never holds the full (B, S, V) logits.
+SwiGLU / GELU MLPs, top-k MoE with capacity-limited, group-local scatter
+dispatch, a chunked cross-entropy that never holds the full (B, S, V) logits,
+and :func:`remat`, the reference's rematerialization policies
+(``jax.checkpoint``) as ``torch.utils.checkpoint``.
 
 What is not here: ``decode_attention_sp`` (``layers.py:247-308``), a
 ``shard_map`` over a sequence-sharded cache, waits for the mesh slice; on one
@@ -17,10 +19,13 @@ function without its chunk-divisibility assert (a ragged last chunk is fine).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 __all__ = [
     "rms_norm",
@@ -34,9 +39,55 @@ __all__ = [
     "gelu_mlp",
     "moe_block",
     "chunked_cross_entropy",
+    "remat",
+    "check_remat",
+    "REMAT_POLICIES",
 ]
 
 NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Rematerialization
+# ---------------------------------------------------------------------------
+
+# the reference's remat policies (``--remat``): "nothing" saves nothing of the
+# wrapped body and recomputes it in the backward pass
+# (``nothing_saveable``); "dots" saves the outputs of the 2-D matmuls and
+# recomputes the rest, batched matmuls included
+# (``dots_with_no_batch_dims_saveable``); "none" saves everything
+REMAT_POLICIES = ("nothing", "dots", "none")
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat(policy: str) -> str:
+    """``policy`` if it names one of :data:`REMAT_POLICIES`."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, got {policy!r}")
+    return policy
+
+
+def remat(fn: Callable, policy: str = "nothing") -> Callable:
+    """``fn`` rematerialized in the backward pass under ``policy`` (one of
+    :data:`REMAT_POLICIES`). Without autograd recording (inference) the body
+    runs as it is; the numbers never change, only what the backward pass keeps."""
+    if check_remat(policy) == "none":
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -158,7 +209,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     Sequences up to 2048 take the single-block path: float32 scores, softmax,
     p in v's dtype times v. Longer ones loop over q chunks (outer) and kv
     chunks (inner) with an online-softmax accumulator in float32, as the
-    reference's scan does; ``score_dtype`` rounds each score block there.
+    reference's scan does; ``score_dtype`` rounds each score block there, and
+    the backward pass recomputes each block instead of keeping it.
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -177,6 +229,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype), v)
 
+    def kv_body(m, l, o, qblk, kblk, vblk, msk):
+        s = torch.einsum("bqhd,bshd->bhqs", qblk, kblk.float()) * scale
+        if msk is not None:
+            s = s.masked_fill(~msk, NEG_INF)
+        if score_dtype != torch.float32:
+            s = s.to(score_dtype).float()
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + torch.einsum("bhqs,bshd->bhqd", p.to(vblk.dtype).float(),
+                                               vblk.float())
+        return m_new, l, o
+
+    # as the reference's checkpointed kv body: the backward pass keeps only
+    # the (m, l, o) accumulators of each step and recomputes the score block
+    kv_body = remat(kv_body)
     outs = []
     for qs in range(0, Sq, chunk_q):
         qblk = q[:, qs:qs + chunk_q].float()
@@ -186,19 +255,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
         o = torch.zeros((B, H, cq, D), dtype=torch.float32, device=dev)
         for ks in range(0, Sk, chunk_kv):
             kblk, vblk = k[:, ks:ks + chunk_kv], v[:, ks:ks + chunk_kv]
-            s = torch.einsum("bqhd,bshd->bhqs", qblk, kblk.float()) * scale
+            msk = None
             if causal or window:
                 msk = _mask(q_pos_all[qs:qs + cq], k_pos_all[ks:ks + kblk.shape[1]], causal, window)
-                s = s.masked_fill(~msk, NEG_INF)
-            if score_dtype != torch.float32:
-                s = s.to(score_dtype).float()
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            o = o * corr[..., None] + torch.einsum("bhqs,bshd->bhqd", p.to(vblk.dtype).float(),
-                                                   vblk.float())
-            m = m_new
+            m, l, o = kv_body(m, l, o, qblk, kblk, vblk, msk)
         out = (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)  # (B, H, cq, D)
         outs.append(out.transpose(1, 2))
     return torch.cat(outs, dim=1)
@@ -226,56 +286,60 @@ def gelu_mlp(x, w_in, b_in, w_out, b_out):
 
 
 # ---------------------------------------------------------------------------
-# MoE: top-k routing with capacity + scatter dispatch (one group)
+# MoE: top-k routing with capacity + group-local scatter dispatch
 # ---------------------------------------------------------------------------
 
 
 def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-              w_down: torch.Tensor, *, top_k: int = 2,
-              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token-dropping top-k MoE (``layers.py:336``) with one dispatch group.
+              w_down: torch.Tensor, *, top_k: int = 2, capacity_factor: float = 1.25,
+              n_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-dropping top-k MoE with group-local scatter dispatch (``layers.py:336``).
 
     x: (B, S, d); router_w: (d, E); expert weights: (E, d, f) / (E, f, d).
-    Returns (output (B, S, d), aux load-balancing loss scalar). Each expert
-    takes at most C = max(1, T·k·cf / E) token slots, filled in token order;
-    the rest are dropped. The reference's ``n_groups`` (one dispatch group
-    per data-parallel shard of a mesh) waits for the mesh slice.
+    Returns (output (B, S, d), aux load-balancing loss scalar). The T tokens
+    split into G = ``n_groups`` groups of T/G (one group when G does not divide
+    T), one per data-parallel shard in the reference; each group dispatches
+    into its own (E, C, d) buffer, C = max(1, (T/G)·k·cf / E) slots per expert
+    filled in token order, and drops the rest.
     """
     B, S, d = x.shape
     E = router_w.shape[-1]
     T = B * S
-    xt = x.reshape(T, d)
+    G = n_groups if n_groups > 0 and T % n_groups == 0 else 1
+    Tg = T // G
+    xt = x.reshape(G, Tg, d)
 
-    probs = torch.softmax(xt.float() @ router_w.float(), dim=-1)        # (T, E)
-    gate_w, expert_idx = torch.topk(probs, top_k, dim=-1)                # (T, k)
+    probs = torch.softmax(xt.float() @ router_w.float(), dim=-1)        # (G, Tg, E)
+    gate_w, expert_idx = torch.topk(probs, top_k, dim=-1)                # (G, Tg, k)
     gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
 
     # Switch-style aux loss: E * sum_e (fraction routed to e) * (mean prob e)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
     aux = E * (me * ce).sum()
 
-    cap = int(max(1, (T * top_k * capacity_factor) / E))
-    flat_e = expert_idx.reshape(T * top_k)
-    onehot = F.one_hot(flat_e, E)                                        # (T·k, E)
-    slot = ((onehot.cumsum(dim=0) - onehot) * onehot).sum(dim=-1)        # slots before me
+    cap = int(max(1, (Tg * top_k * capacity_factor) / E))
+    flat_e = expert_idx.reshape(G, Tg * top_k)
+    onehot = F.one_hot(flat_e, E)                                        # (G, Tg·k, E)
+    slot = ((onehot.cumsum(dim=1) - onehot) * onehot).sum(dim=-1)        # slots before me
     keep = slot < cap
 
-    xk = xt.repeat_interleave(top_k, dim=0)                              # (T·k, d)
+    xk = xt.repeat_interleave(top_k, dim=1)                              # (G, Tg·k, d)
     e_safe = torch.where(keep, flat_e, 0)
     s_safe = torch.where(keep, slot, 0)
-    buf = torch.zeros((E, cap, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((e_safe, s_safe), torch.where(keep[:, None], xk, 0).to(x.dtype),
-                   accumulate=True)
+    g_idx = torch.arange(G, device=x.device)[:, None].expand_as(e_safe)
+    buf = torch.zeros((G, E, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((g_idx, e_safe, s_safe), torch.where(keep[..., None], xk, 0).to(x.dtype),
+                        accumulate=True)
 
-    g = torch.einsum("ecd,edf->ecf", buf, w_gate)
-    u = torch.einsum("ecd,edf->ecf", buf, w_up)
-    yb = torch.einsum("ecf,efd->ecd", F.silu(g) * u, w_down)            # (E, C, d)
+    g = torch.einsum("gecd,edf->gecf", buf, w_gate)
+    u = torch.einsum("gecd,edf->gecf", buf, w_up)
+    yb = torch.einsum("gecf,efd->gecd", F.silu(g) * u, w_down)          # (G, E, C, d)
 
-    gathered = yb[e_safe, s_safe]                                        # (T·k, d)
-    wk = gate_w.reshape(T * top_k)
-    gathered = torch.where(keep[:, None], gathered, 0) * wk[:, None].to(x.dtype)
-    return gathered.reshape(T, top_k, d).sum(dim=1).reshape(B, S, d), aux
+    gathered = yb[g_idx, e_safe, s_safe]                                 # (G, Tg·k, d)
+    wk = gate_w.reshape(G, Tg * top_k)
+    gathered = torch.where(keep[..., None], gathered, 0) * wk[..., None].to(x.dtype)
+    return gathered.reshape(G, Tg, top_k, d).sum(dim=2).reshape(B, S, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -283,23 +347,31 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_u
 # ---------------------------------------------------------------------------
 
 
+def _ce_chunk(hb: torch.Tensor, w_vocab: torch.Tensor, lb: torch.Tensor):
+    """(summed CE, valid count) of one sequence chunk, in float32."""
+    logits = hb.float() @ w_vocab.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lb.clamp(min=0).long()[..., None])[..., 0]
+    valid = (lb >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
 def chunked_cross_entropy(h: torch.Tensor, w_vocab: torch.Tensor, labels: torch.Tensor, *,
                           chunk: int = 256) -> torch.Tensor:
     """Mean token CE of h @ w_vocab vs labels, computed in sequence chunks.
 
     h: (B, S, d); w_vocab: (d, V); labels: (B, S) int (< 0 = ignore). Each
-    chunk's float32 logits (B, chunk, V) are transient.
+    chunk's float32 logits (B, chunk, V) and the float32 copy of ``w_vocab``
+    are transient: the backward pass recomputes them chunk by chunk, as the
+    reference's checkpointed chunk body does, so the full (B, S, V) logits
+    never exist.
     """
     S = h.shape[1]
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-    w = w_vocab.float()
+    body = remat(_ce_chunk)
     for s0 in range(0, S, chunk):
-        logits = h[:, s0:s0 + chunk].float() @ w
-        lb = labels[:, s0:s0 + chunk]
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lb.clamp(min=0).long()[..., None])[..., 0]
-        valid = (lb >= 0).float()
-        tot = tot + ((lse - gold) * valid).sum()
-        cnt = cnt + valid.sum()
+        l, c = body(h[:, s0:s0 + chunk], w_vocab, labels[:, s0:s0 + chunk])
+        tot = tot + l
+        cnt = cnt + c
     return tot / torch.clamp(cnt, min=1.0)

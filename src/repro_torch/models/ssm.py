@@ -10,7 +10,9 @@ float32 inside bf16 models, and every recurrence runs in float32.
 What changes from the reference:
 
 * ``lax.scan`` over stacked layers and over sequence chunks becomes a Python
-  loop; remat and the sharding constraints are dropped (inference on one card).
+  loop; each layer of ``loss`` and each chunk body of the scans is wrapped by
+  :func:`layers.remat` under ``remat_policy``, where the reference wraps them
+  in ``jax.checkpoint``; the sharding constraints are dropped (one card).
 * Mamba-1's ``associative_scan`` inside a chunk becomes a log-depth doubling
   (Hillis-Steele) scan with the same combine ``(a1*a2, b1*a2 + b2)``: 7 steps at
   chunk 128. The chunk rule (``chunk = min(chunk, S)``, halved until it divides
@@ -93,12 +95,13 @@ class MambaLM:
     # conv states are O(1) in the sequence
     GROWING_CACHE = ()
 
-    def __init__(self, cfg: ArchConfig, attn: str = "flash"):
+    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing"):
         """``attn`` is accepted for a uniform ``get_model`` and unused: the
         model has no attention."""
         assert cfg.ssm is not None and cfg.ssm.version == 1
         self.cfg = cfg
         self.attn = check_attn(attn)
+        self.remat_policy = L.check_remat(remat_policy)
 
     @property
     def dt_rank(self) -> int:
@@ -158,15 +161,19 @@ class MambaLM:
         """
         S = x.shape[1]
         chunk = _chunk_len(chunk, S)
-        h, ys = h0, []
-        for s0 in range(0, S, chunk):
-            xch, dtch, Bch, Cch = (v[:, s0:s0 + chunk] for v in (x, dt, Bs, Cs))
+
+        def chunk_body(h, xch, dtch, Bch, Cch):
             a = torch.exp(dtch[..., None] * A)                      # (B,c,DI,N)
             b = (dtch * xch)[..., None] * Bch[:, :, None, :]
             aP, bP = _affine_scan(a, b)
             hs = aP * h[:, None] + bP                               # (B,c,DI,N)
-            ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cch))
-            h = hs[:, -1]
+            return hs[:, -1], torch.einsum("bcdn,bcn->bcd", hs, Cch)
+
+        chunk_body = L.remat(chunk_body, self.remat_policy)
+        h, ys = h0, []
+        for s0 in range(0, S, chunk):
+            h, y = chunk_body(h, *(v[:, s0:s0 + chunk] for v in (x, dt, Bs, Cs)))
+            ys.append(y)
         return torch.cat(ys, dim=1), h
 
     def _block_full(self, h, p):
@@ -192,8 +199,9 @@ class MambaLM:
         """Mean next-token CE; differentiable, as the reference's."""
         h = params["embed"][batch["tokens"].long()]
         stacked = stacked_params(params)
+        layer = L.remat(lambda h, p: self._block_full(h, p)[0], self.remat_policy)
         for i in range(self.cfg.n_layers):
-            h, _ = self._block_full(h, layer_params(stacked, i))
+            h = layer(h, layer_params(stacked, i))
         h = L.rms_norm(h, params["final_norm"])
         return L.chunked_cross_entropy(h, params["lm_head"], batch["labels"])
 
@@ -258,10 +266,11 @@ class Zamba2LM:
     # block's K/V; the SSM and conv states are O(1)
     GROWING_CACHE = ("attn_k", "attn_v")
 
-    def __init__(self, cfg: ArchConfig, attn: str = "flash"):
+    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing"):
         assert cfg.ssm is not None and cfg.ssm.version == 2
         self.cfg = cfg
         self.attn = check_attn(attn)
+        self.remat_policy = L.check_remat(remat_policy)
 
     @property
     def n_ssm_heads(self) -> int:
@@ -330,9 +339,8 @@ class Zamba2LM:
         S = x.shape[1]
         chunk = _chunk_len(chunk, S)
         tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-        h, ys = h0, []
-        for s0 in range(0, S, chunk):
-            xch, dtch, Bch, Cch = (v[:, s0:s0 + chunk] for v in (x, dt, Bs, Cs))
+
+        def chunk_body(h, xch, dtch, Bch, Cch):
             s = torch.cumsum(dtch * A, dim=1)                     # log-decay from chunk start
             # intra-chunk: attention-like masked product; the mask goes in
             # before exp, so no inf (s_i - s_j > 0 above the diagonal) is made
@@ -346,7 +354,12 @@ class Zamba2LM:
             # state update
             decay_to_end = torch.exp(s[:, -1:, :] - s)            # (B,c,P)
             S_chunk = torch.einsum("bjp,bjn,bjph->bpnh", decay_to_end * dtch, Bch, xch)
-            h = torch.exp(s[:, -1, :])[:, :, None, None] * h + S_chunk
+            return torch.exp(s[:, -1, :])[:, :, None, None] * h + S_chunk, y
+
+        chunk_body = L.remat(chunk_body, self.remat_policy)
+        h, ys = h0, []
+        for s0 in range(0, S, chunk):
+            h, y = chunk_body(h, *(v[:, s0:s0 + chunk] for v in (x, dt, Bs, Cs)))
             ys.append(y)
         return torch.cat(ys, dim=1), h
 
@@ -443,9 +456,10 @@ class Zamba2LM:
         B, S = batch["tokens"].shape
         h = params["embed"][batch["tokens"].long()]
         positions = self._positions(B, S, h.device)
+        layer = L.remat(lambda h, p: self._mamba_block(h, p)[0], self.remat_policy)
         for grp in self._split_groups(params):
             for p in grp:
-                h, _, _ = self._mamba_block(h, p)
+                h = layer(h, p)
             h, _ = self._shared_attn(h, params, positions)
         h = L.rms_norm(h, params["final_norm"])
         return L.chunked_cross_entropy(h, params["lm_head"], batch["labels"])

@@ -15,9 +15,11 @@ Entry points, as in the reference:
 * ``decode_step(params, batch, cache)`` — one token against the cache
 
 What changes from the reference: ``lax.scan`` over the stacked blocks becomes
-a Python loop over the leading layer dim; remat and the sharding constraints
-are dropped (inference on one card); the decode step writes the new K/V into
-the preallocated cache in place, where the reference's
+a Python loop over the leading layer dim, each layer of ``loss`` wrapped by
+:func:`layers.remat` under ``remat_policy`` (the reference's
+``jax.checkpoint``); the sharding constraints are dropped (one card), so MoE
+dispatches in one group (``_dp_degree``); the decode step writes the new K/V
+into the preallocated cache in place, where the reference's
 ``dynamic_update_slice`` returns a new array. ``attn="flash"`` (the default)
 runs the full-sequence attention of ``loss`` and ``prefill`` through
 :func:`repro_torch.kernels.flash_attention.flash_attention`, the hand-written
@@ -81,9 +83,10 @@ class TransformerLM:
     # cache entries the serving engine grows before decode
     GROWING_CACHE = ("k", "v")
 
-    def __init__(self, cfg: ArchConfig, attn: str = "flash"):
+    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing"):
         self.cfg = cfg
         self.attn = check_attn(attn)
+        self.remat_policy = L.check_remat(remat_policy)
 
     # ------------------------------------------------------------------
     # Parameter templates
@@ -145,6 +148,10 @@ class TransformerLM:
             n += cnt
         return n
 
+    def _dp_degree(self) -> int:
+        """Data-parallel shards of the mesh: one card, one shard."""
+        return 1
+
     # ------------------------------------------------------------------
     # Blocks
     # ------------------------------------------------------------------
@@ -170,7 +177,8 @@ class TransformerLM:
         c = self.cfg
         if c.moe is not None:
             return L.moe_block(x, p["router"], p["moe_gate"], p["moe_up"], p["moe_down"],
-                               top_k=c.moe.top_k, capacity_factor=c.moe.capacity_factor)
+                               top_k=c.moe.top_k, capacity_factor=c.moe.capacity_factor,
+                               n_groups=self._dp_degree())
         return L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), torch.zeros((), device=x.device)
 
     def _block_full(self, h, p, positions, positions3, causal=True):
@@ -238,8 +246,14 @@ class TransformerLM:
         positions, positions3 = self._positions(batch, B, S)
         stacked = stacked_params(params)
         aux = torch.zeros((), device=h.device)
+
+        def layer(h, p):
+            h, _, a = self._block_full(h, p, positions, positions3)
+            return h, a
+
+        layer = L.remat(layer, self.remat_policy)
         for i in range(c.n_layers):
-            h, _, a = self._block_full(h, layer_params(stacked, i), positions, positions3)
+            h, a = layer(h, layer_params(stacked, i))
             aux = aux + a
         h = L.rms_norm(h, params["final_norm"])
         ce = L.chunked_cross_entropy(h, self._lm_head(params), batch["labels"])

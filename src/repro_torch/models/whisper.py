@@ -8,7 +8,9 @@ pre-LayerNorm), decoder layers (causal self-attention, cross-attention, GELU
 MLP), sinusoidal positions, logits tied to the decoder token embedding.
 
 What changes from the reference: ``lax.scan`` over stacked layers becomes a
-Python loop; remat and the sharding constraints are dropped. ``attn="flash"``
+Python loop, each encoder and decoder layer wrapped by :func:`layers.remat`
+under ``remat_policy`` (the reference's ``jax.checkpoint``); the sharding
+constraints are dropped. ``attn="flash"``
 (the default) runs every full-sequence attention of ``loss`` and ``prefill``
 through :func:`repro_torch.kernels.flash_attention.flash_attention`: the
 encoder's bidirectional self attention, the decoder's causal self attention
@@ -55,9 +57,10 @@ class WhisperModel:
     # self-attention K/V; the cross K/V stay the encoder's S_enc frames
     GROWING_CACHE = ("self_k", "self_v")
 
-    def __init__(self, cfg: ArchConfig, attn: str = "flash"):
+    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing"):
         self.cfg = cfg
         self.attn = check_attn(attn)
+        self.remat_policy = L.check_remat(remat_policy)
 
     def param_templates(self) -> Dict[str, ParamSpec]:
         c = self.cfg
@@ -132,11 +135,15 @@ class WhisperModel:
         _, S, d = frames.shape
         h = frames + sinusoid_positions(S, d, device=frames.device).to(frames.dtype)[None]
         stacked = stacked_params(params, "enc.")
-        for i in range(self.cfg.n_layers):
-            p = layer_params(stacked, i)
+
+        def layer(h, p):
             x = L.layer_norm(h, p["attn_norm"], p["attn_norm_b"])
             h = h + self._mha(x, x, p, "attn", causal=False)[0]
-            h = self._mlp(h, p)
+            return self._mlp(h, p)
+
+        layer = L.remat(layer, self.remat_policy)
+        for i in range(self.cfg.n_layers):
+            h = layer(h, layer_params(stacked, i))
         return L.layer_norm(h, params["enc_final_norm"], params["enc_final_bias"])
 
     def _decoder_full(self, params, tokens, enc_out):
@@ -144,17 +151,20 @@ class WhisperModel:
         h = params["embed"][tokens.long()]
         h = h + sinusoid_positions(S, self.cfg.d_model, device=h.device).to(h.dtype)[None]
         stacked = stacked_params(params, "dec.")
-        caches = ([], [], [], [])
-        for i in range(self.cfg.n_layers):
-            p = layer_params(stacked, i)
+
+        def layer(h, p):
             x = L.layer_norm(h, p["self_norm"], p["self_norm_b"])
             a, (sk, sv) = self._mha(x, x, p, "self", causal=True)
             h = h + a
             x = L.layer_norm(h, p["cross_norm"], p["cross_norm_b"])
             a, (ck, cv) = self._mha(x, enc_out, p, "cross", causal=False)
-            h = h + a
-            h = self._mlp(h, p)
-            for lst, t in zip(caches, (sk, sv, ck, cv)):
+            return self._mlp(h + a, p), (sk, sv, ck, cv)
+
+        layer = L.remat(layer, self.remat_policy)
+        caches = ([], [], [], [])
+        for i in range(self.cfg.n_layers):
+            h, kv = layer(h, layer_params(stacked, i))
+            for lst, t in zip(caches, kv):
                 lst.append(t)
         h = L.layer_norm(h, params["dec_final_norm"], params["dec_final_bias"])
         return h, tuple(torch.stack(lst) for lst in caches)

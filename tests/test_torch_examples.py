@@ -16,7 +16,12 @@ EXAMPLES = {
     "torch_serve_from_compressed.py": ("params bit-equal to the source", "batched serving done",
                                        "equal to the in-process reconstruction",
                                        "store kernels: {'xor_split': 1"),
+    "torch_train_with_zllm_checkpoints.py": ("resumed from step 6", "finished at step 12",
+                                             "bitx=42", "bit-equal to the trained ones: True",
+                                             "device: cpu"),
 }
+# arguments of an example besides ``--device cpu`` (its tiny size)
+ARGS = {"torch_train_with_zllm_checkpoints.py": ("--tiny", "--steps", "12")}
 
 
 def _run(name, *args, **env):
@@ -27,7 +32,7 @@ def _run(name, *args, **env):
 
 @pytest.mark.parametrize("name", sorted(EXAMPLES))
 def test_example_runs_on_the_cpu(name):
-    proc = _run(name, "--device", "cpu")
+    proc = _run(name, "--device", "cpu", *ARGS.get(name, ()))
     assert proc.returncode == 0, proc.stderr
     for line in EXAMPLES[name]:
         assert line in proc.stdout, proc.stdout

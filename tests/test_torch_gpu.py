@@ -1,8 +1,9 @@
 """The kernels of the port on the card against their plain PyTorch versions
 (the six storage kernels byte for byte, the bit counts exactly; both routes of
 flash attention within the reference's tolerances, each call asserting the
-route it took), the device store path, the bit-distance calibration and the
-serving engine and the HTTP store server on the card.
+route it took), the device store path, the bit-distance calibration, the
+serving engine, the HTTP store server, one optimizer step against the CPU's
+and the trainer with its checkpoints on the card.
 
 Run on a machine with a CUDA card:
 
@@ -439,3 +440,52 @@ def test_server_on_card(cuda, tmp_path):
     calls = counters["kernel_calls"]
     assert calls["xor_split"] > 0 and calls["merge_xor"] > 0 and calls["merge"] > 0, calls
     assert counters["h2d_bytes"] > 0 and counters["d2h_bytes"] > 0
+
+
+@pytest.mark.parametrize("name,kw", [("adamw", {}), ("adafactor", {"factored_min_dim": 4})])
+def test_optimizer_step_on_card_matches_cpu(cuda, name, kw):
+    """One update on the card equals the CPU's within 1e-6 of each tensor's
+    scale (float32; the card may divide by a scalar through its reciprocal)."""
+    from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
+
+    rng = np.random.default_rng(7)
+    shapes = {"w": (64, 32), "stack": (2, 16, 8), "norm": (32,)}
+    p = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for k, s in shapes.items()}
+    g = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for k, s in shapes.items()}
+    opt = make_optimizer(OptimizerConfig(name=name, lr=1e-2, warmup_steps=0, **kw))
+    pc = {k: v.clone() for k, v in p.items()}
+    pg = {k: v.to(cuda) for k, v in p.items()}
+    pc, sc = opt.update(g, opt.init(pc), pc)
+    pg, sg = opt.update({k: v.to(cuda) for k, v in g.items()}, opt.init(pg), pg)
+    assert int(sg["step"]) == 1 and sg["step"].device.type == "cuda"
+    for k in shapes:
+        want = pc[k]
+        assert float((pg[k].cpu() - want).abs().max()) <= 1e-6 * float(want.abs().max()), k
+
+
+def test_trainer_on_card_with_store(cuda, tmp_path):
+    """The smoke config trained on the card with a store on the card:
+    compressed-only checkpoints BitX-chained by the card's kernels, and a
+    resumed trainer restores them bit-equal."""
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(arch=get_config("qwen2-7b", smoke=True), seq_len=32, global_batch=4,
+                      microbatches=2, steps=4, ckpt_every=2, run_dir=str(tmp_path / "run"),
+                      keep_plain_ckpt=False)
+    store = ZLLMStore(str(tmp_path / "store"))
+    assert str(store.backend.device) == "cuda:0"
+    _build.reset_launch_counts()
+    t1 = Trainer(cfg, store=store, run_id="r")
+    assert t1.device.type == "cuda" and t1.params["embed"].device.type == "cuda"
+    h = t1.run()
+    assert [r["step"] for r in h] == [1, 2, 3, 4] and all(np.isfinite(r["loss"]) for r in h)
+    assert store.results[0].n_zipnn > 0
+    assert store.results[1].base_source == "declared" and store.results[1].n_bitx > 0
+    t2 = Trainer(cfg, store=store, run_id="r")
+    assert t2.resumed_from == 4
+    for k, v in t1.params.items():
+        assert t2.params[k].device.type == "cuda" and torch.equal(t2.params[k], v), k
+    launches = _build.launch_counts()
+    assert launches["split"] > 0 and launches["xor_split"] > 0 and launches["merge_xor"] > 0, \
+        launches
+    store.close()

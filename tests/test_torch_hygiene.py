@@ -19,7 +19,8 @@ from repro_torch.serve import engine
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py",
-    REPO / "examples" / "torch_serve_from_compressed.py"]
+    REPO / "examples" / "torch_serve_from_compressed.py",
+    REPO / "examples" / "torch_train_with_zllm_checkpoints.py"]
 BANNED = {"jax", "jaxlib", "repro", "benchmarks", "ml_dtypes"}
 
 
@@ -62,7 +63,10 @@ def test_port_imports_with_jax_and_reference_blocked():
               "repro_torch.configs.qwen2_7b", "repro_torch.sharding.rules",
               "repro_torch.core.chunkdedup", "repro_torch.serve.singleflight",
               "repro_torch.serve.router", "repro_torch.serve.peer",
-              "repro_torch.serve.store_server"):
+              "repro_torch.serve.store_server", "repro_torch.optim.optimizers",
+              "repro_torch.train.step", "repro_torch.train.trainer",
+              "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+              "repro_torch.checkpoint.straggler", "repro_torch.launch.train"):
         assert m in modules, m
 
 
