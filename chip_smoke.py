@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``flash_attention.cu`` and ``flash_attention_sm90.cu`` with nvcc (with
    ``-Xptxas -v``), one process per source, in parallel; print each flash
    kernel's registers and spills and the count of ``HGMMA`` (tensor-core)
-   instructions in each flash kernel's SASS (``cuobjdump -sass``);
+   instructions in each flash kernel's SASS (``cuobjdump -sass``); every sm90
+   instance (D 64, 80, 128) must hold some;
 3. kernels: each of the six storage kernels against its plain PyTorch version
    on the card, byte for byte (bit counts exactly), at word widths 1/2/4/8 and
    awkward lengths (the word XOR also on operands off a 16-byte boundary and at
@@ -72,7 +73,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    calls a prefill, encoder, causal self and cross attention, all ``sm90``);
    9b zamba2-2.7b at published widths and depth (54 Mamba-2 layers, the
    shared block 9 times at head dim 80: 9 flash calls a prefill, all
-   ``simt``; 1024-token prompts, 16 new); 9c falcon-mamba-7b at published
+   ``sm90``; 1024-token prompts, 16 new); 9c falcon-mamba-7b at published
    widths, depth cut from 64 layers to 2 (full-vocabulary embed and lm_head
    kept): a base and a fine-tune written as BF16/F32 safetensors, ingested
    into a fresh store (the fine-tune BitX-coded against its declared base at
@@ -85,8 +86,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (falcon-mamba's cache bytes the same at 128 and 1024 tokens); prefill ms
    (served and warm), decode ms per step, tokens/s and peak device memory,
    for 9c ingest MB/s and the cold start, beside the card's name and power
-   limit. The flash kernel is timed at 9b's shape (simt, D 80, causal) and
-   at 9a's encoder shape (sm90, D 64, bidirectional) beside its bound and
+   limit. The flash kernel is timed at 9b's shape (D 80, causal) on both
+   routes, ``sm90`` (the path's) and ``simt``, and at 9a's encoder shape
+   (sm90, D 64, bidirectional) beside its bound and
    ``scaled_dot_product_attention``. The results go on a JSON line of their
    own (``families``).
 10. training: 10a trains Qwen2-7B's published widths, depth cut from 28
@@ -121,7 +123,9 @@ Phase 3 also holds both flash-attention kernels (routes ``sm90`` and ``simt``)
 against their plain version (``ref.mha_reference``) at the reference tests'
 cases, ragged lengths, every head dim (80 included), Sq != Sk, bidirectional and windowed
 masks, fully masked rows and strided (fused-projection) and misaligned
-operands, asserting the route of each call, and times both at the shapes
+operands, asserting the route of each call (bf16 at D 64, 80 and 128 takes
+``sm90``; at D 80 the ``simt`` kernel is also launched directly on the bf16
+cases, since no wrapper call takes it there), and times both at the shapes
 phase 7's prefills give the kernel (B 4, S 2032 and 512, H 28, D 128, bf16,
 causal) and at S 2048, beside their bound, the plain version and
 ``torch.nn.functional.scaled_dot_product_attention``, with the wrapper's host
@@ -413,7 +417,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
 
 # (B, Sq, Sk, H, D, causal, window): tests/test_flash_kernel.py:12-19 first,
 # then ragged lengths, every head dim, bidirectional and windowed masks; then
-# cases for the sm90 route (bf16 at D 64 and 128): ragged Sq and Sk, Sq != Sk
+# cases for the sm90 route (bf16 at D 64, 80 and 128): ragged Sq and Sk, Sq != Sk
 # causal and not, a window over ragged tiles, and fully masked rows at D 64
 # (rows from 23 on see no key in the window)
 FLASH_CASES = [
@@ -427,8 +431,9 @@ FLASH_CASES = [
     (2, 77, 77, 3, 128, True, 0), (1, 300, 170, 2, 64, True, 0),
     (1, 170, 300, 2, 128, False, 0), (1, 260, 260, 2, 64, True, 64),
     (1, 128, 16, 2, 64, False, 8),
-    # head dim 80 (zamba2-2.7b; simt in both dtypes): ragged, Sq != Sk, a
-    # window; and whisper's cross attention, 64 decoder tokens to 1500 frames
+    # head dim 80 (zamba2-2.7b; sm90 in bf16, and phase 3 also launches simt
+    # on the bf16 inputs): ragged, Sq != Sk, a window; and whisper's cross
+    # attention, 64 decoder tokens to 1500 frames
     (2, 333, 333, 4, 80, True, 0), (1, 64, 300, 2, 80, False, 0), (1, 200, 200, 2, 80, True, 64),
     (2, 64, 1500, 16, 64, False, 0),
 ]
@@ -499,6 +504,11 @@ def phase_flash(gen: torch.Generator) -> dict:
             key = (str(dt).split(".")[-1], flash_route(dt, D))
             worst[key] = max(worst.get(key, 0.0),
                              flash_checked(q, k, v, causal, window, route=key[1])[1])
+            if D == 80 and dt == bf16:
+                # the simt kernel at D 80 in bf16, which the wrapper sends to sm90
+                err = held_to_plain(fa._launch("simt", q, k, v, causal, window), q, k, v, causal,
+                                    window)
+                worst[("bfloat16", "simt")] = max(worst.get(("bfloat16", "simt"), 0.0), err)
     for D in fa.SM90_HEAD_DIMS:
         # slices of one fused (B, S, 3H, D) projection, read in place by TMA;
         # a slice 2 bytes off a 16-byte boundary, which no tensor map addresses
@@ -575,7 +585,8 @@ def _cuobjdump():
 def flash_build_report() -> dict:
     """Per flash kernel instance: registers and spilled bytes (from the build's
     ``-Xptxas -v``) and HGMMA instructions in its SASS (``cuobjdump -sass``).
-    Raises if the sm90 kernel holds no HGMMA."""
+    Raises if an sm90 instance (one per head dim of the route) is missing or
+    holds no HGMMA."""
     info = {}
     for src, text in _build.build_log().items():
         if not src.startswith("flash_attention"):
@@ -614,9 +625,11 @@ def flash_build_report() -> dict:
         hg = "not available (no cuobjdump)" if r["hgmma"] is None else r["hgmma"]
         log(f"build: {name}: {regs}; HGMMA instructions in its SASS: {hg}")
     if sass is not None:
-        sm90 = [r["hgmma"] for n, r in info.items() if n.startswith("flash_fwd_sm90")]
-        if not sm90 or min(sm90) == 0:
-            raise AssertionError(f"the sm90 flash kernel holds no HGMMA instruction: {info}")
+        sm90 = {D: info.get(f"flash_fwd_sm90_kernel<{D}>", {}).get("hgmma")
+                for D in fa.SM90_HEAD_DIMS}
+        if not all(sm90.values()):
+            raise AssertionError(f"an sm90 flash kernel instance is missing or holds no HGMMA "
+                                 f"instruction: {sm90}; {info}")
     return info
 
 
@@ -1629,12 +1642,14 @@ def _family_serve(name: str, cfg, engine: ServeEngine, prompts, n_new: int, extr
 
 def _time_flash(B: int, S: int, H: int, D: int, causal: bool, route: str,
                 gen: torch.Generator) -> dict:
-    """One flash shape timed on its route beside its bound, its plain version
-    and scaled_dot_product_attention."""
+    """One flash shape timed on ``route`` beside its bound, its plain version
+    and scaled_dot_product_attention. The route's kernel is launched directly,
+    as phase 3 does, so a route the wrapper does not pick at this shape is
+    timed too."""
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
                for _ in range(3))
-    err = flash_checked(q, k, v, causal, route=route)[1]
-    fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    fn = lambda: fa._launch(route, q, k, v, causal, 0)  # noqa: E731
+    err = held_to_plain(fn(), q, k, v, causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     r = {"shape": [B, S, H, D], "causal": causal, "route": route, "max_abs_err": err,
          "ms": cuda_ms(fn), "host_us": host_us(fn),
@@ -1681,6 +1696,40 @@ def phase_whisper(seed: int, smi: str) -> tuple:
     return report, routes
 
 
+ZAMBA2_ROUTE_PAIRS = 4  # warm prefills per route in the comparison below
+
+
+def _prefill_by_route(name: str, engine: ServeEngine, batch: dict, module, n_calls: int) -> dict:
+    """Warm prefill ms with the path's flash calls on sm90, as served, and
+    with the same calls sent to the simt kernel, in turns (sm90, simt, simt,
+    sm90, ...): what the kernel's route is worth end to end."""
+    def simt(q, k, v, *, causal, window=0):
+        return fa._launch("simt", q, k, v, causal, window)
+
+    ms = {"sm90": [], "simt": []}
+    for i in range(ZAMBA2_ROUTE_PAIRS):
+        for r in (("sm90", "simt") if i % 2 == 0 else ("simt", "sm90")):
+            module.flash_attention = simt if r == "simt" else flash_attention
+            fa.reset_route_launches()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.model.prefill(engine.params, batch)
+                torch.cuda.synchronize()
+            finally:
+                module.flash_attention = flash_attention
+            ms[r].append(1e3 * (time.perf_counter() - t0))
+            if fa.route_launches()[r] != n_calls:
+                raise AssertionError(f"families {name}: a prefill sent to {r} launched "
+                                     f"{fa.route_launches()}, want {n_calls} on {r}")
+    med = {r: float(np.median(v)) for r, v in ms.items()}
+    log(f"families {name}: warm prefill with its {n_calls} flash calls on sm90 / on simt, in "
+        f"turns: medians {med['sm90']:.2f} / {med['simt']:.2f} ms (difference "
+        f"{med['simt'] - med['sm90']:.2f} ms; runs sm90 {[round(x, 2) for x in ms['sm90']]}, simt "
+        f"{[round(x, 2) for x in ms['simt']]})")
+    return {"ms": ms, "median_ms": med}
+
+
 def phase_zamba2(seed: int, smi: str) -> tuple:
     """9b: zamba2-2.7b at published widths and depth."""
     cfg = zamba2_2_7b.CONFIG
@@ -1698,10 +1747,13 @@ def phase_zamba2(seed: int, smi: str) -> tuple:
         1, cfg.vocab, (FAMILY_BATCH, LM_PROMPT)).astype(np.int32)
     engine = ServeEngine(cfg, params, device=DEVICE)
     del params
-    report, routes = _family_serve("zamba2", cfg, engine, prompts, LM_NEW, None, "simt",
+    report, routes = _family_serve("zamba2", cfg, engine, prompts, LM_NEW, None, "sm90",
                                    n_groups, smi)
+    log(f"families zamba2: prefill {report['prefill_ms']:.2f} ms on the sm90 route (738.87 ms "
+        f"when this shape took the simt route, on an H100 80GB HBM3 at 700 W)")
     batch = {"tokens": torch.as_tensor(prompts, device=DEVICE)}
-    report.update(_family_checks("zamba2", cfg, engine, batch, "simt", ssm))
+    report.update(_family_checks("zamba2", cfg, engine, batch, "sm90", ssm))
+    report["prefill_by_route"] = _prefill_by_route("zamba2", engine, batch, ssm, n_groups)
     report["seconds"] = time.perf_counter() - t0
     del engine
     torch.cuda.empty_cache()
@@ -1826,10 +1878,14 @@ def phase_families(tmp: str, seed: int, smi: str) -> dict:
     out["zamba2"], r_z = phase_zamba2(seed, smi)
     out["mamba"], _ = phase_mamba(tmp, seed, smi)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 8)
-    out["timed"] = {"simt": _time_flash(FAMILY_BATCH, LM_PROMPT, zamba2_2_7b.CONFIG.n_heads,
-                                        zamba2_2_7b.CONFIG.hd, True, "simt", gen),
-                    "sm90": _time_flash(FAMILY_BATCH, WHISPER_FRAMES, whisper_medium.CONFIG.n_heads,
-                                        whisper_medium.CONFIG.hd, False, "sm90", gen)}
+    # zamba2's shared attention on both routes (the path takes sm90), and
+    # whisper's encoder on sm90
+    zamba2 = (FAMILY_BATCH, LM_PROMPT, zamba2_2_7b.CONFIG.n_heads, zamba2_2_7b.CONFIG.hd, True)
+    out["timed"] = {"sm90_zamba2": _time_flash(*zamba2, "sm90", gen),
+                    "simt_zamba2": _time_flash(*zamba2, "simt", gen),
+                    "sm90_whisper": _time_flash(FAMILY_BATCH, WHISPER_FRAMES,
+                                                whisper_medium.CONFIG.n_heads,
+                                                whisper_medium.CONFIG.hd, False, "sm90", gen)}
     out["launches"] = {r: r_w[r] + r_z[r] for r in r_w}
     out["seconds"] = time.perf_counter() - t0
     log(f"families: phase 9 took {out['seconds']:.1f} s (whisper {out['whisper']['seconds']:.1f}, "
@@ -2186,6 +2242,7 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     report = phase_kernels(gen)
     flash_reports = phase_flash(gen)
+    flash_launches_phase3 = fa.route_launches()  # checks and timings, by route
     tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-")
     try:
         launches = phase_store(tmp, SEED)
@@ -2240,30 +2297,43 @@ def main() -> int:
         })
     # each flash route's row: the numbers at the largest shape of its path
     # (sm90: phase 7's S 2032 prefill, D 128; simt: zamba2's shared attention,
-    # D 80), with the route's other timed shape under "also"
+    # D 80, which no serving path takes), and per instance of sm90 its path's
+    # shape, launches and build report (D 128 phase 7, D 80 9b, D 64 9a)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     timed = families["timed"]
+    sm90_paths = {128: (flash_reports["sm90"], launches["flash_attention"], "phase 7 (serve)"),
+                  80: (timed["sm90_zamba2"], families["zamba2"]["flash_launches"]["sm90"],
+                       "phase 9b (zamba2-2.7b's shared attention)"),
+                  64: (timed["sm90_whisper"], families["whisper"]["flash_launches"]["sm90"],
+                       "phase 9a (whisper-medium)")}
     rows = {
-        "sm90": {"main": flash_reports["sm90"], "also": timed["sm90"],
-                 "launches": launches["flash_attention"] + families["launches"]["sm90"],
-                 "launched_by": "phases 7 (serve) and 9a (whisper-medium)",
+        "sm90": {"main": flash_reports["sm90"],
+                 "launches": sum(n for _, n, _ in sm90_paths.values()),
+                 "launched_by": "phases 7 (serve), 9a (whisper-medium) and 9b (zamba2-2.7b)",
                  "instance": "flash_fwd_sm90_kernel<128>",
-                 "err": max(flash_reports["sm90"]["max_abs_err"], path_err, timed["sm90"]["max_abs_err"],
-                            families["whisper"]["flash_err"])},
-        "simt": {"main": timed["simt"], "also": flash_reports["simt"],
-                 "launches": families["launches"]["simt"],
-                 "launched_by": "phase 9b (zamba2-2.7b's shared attention, head dim 80)",
+                 "instances": {f"flash_fwd_sm90_kernel<{D}>": {
+                     **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
+                     **build_info.get(f"flash_fwd_sm90_kernel<{D}>", {})}
+                     for D, (r, n, by) in sm90_paths.items()},
+                 "err": max(flash_reports["sm90"]["max_abs_err"], path_err,
+                            timed["sm90_zamba2"]["max_abs_err"], timed["sm90_whisper"]["max_abs_err"],
+                            families["whisper"]["flash_err"], families["zamba2"]["flash_err"])},
+        "simt": {"main": timed["simt_zamba2"], "launches": flash_launches_phase3["simt"],
+                 "launches_on_serving_paths": families["launches"]["simt"],
+                 "launched_by": "phase 3 only (kernel checks and timings): no serving path "
+                                "takes it (bf16 at head dims 64, 80 and 128 takes sm90)",
                  "instance": "flash_fwd_kernel<bf16,80,64>",
-                 "err": max(flash_reports["simt"]["max_abs_err"], timed["simt"]["max_abs_err"],
-                            families["zamba2"]["flash_err"])},
+                 "err": max(flash_reports["simt"]["max_abs_err"],
+                            timed["simt_zamba2"]["max_abs_err"])},
     }
     for route, row in rows.items():
+        extra = {k: row[k] for k in ("instances", "launches_on_serving_paths") if k in row}
         kernels.append({
             **{k: FLASH[route][k] for k in ("name", "source")}, "route": "cuda",
             "replaces": FLASH_REPLACES, "flash_route": route,
             "launches": row["launches"], "launched_by": row["launched_by"], "matched": True,
             "max_abs_err": row["err"], **{k: row["main"][k] for k in keys},
-            "library": FLASH_LIBRARY, "also": {k: row["also"][k] for k in keys},
+            "library": FLASH_LIBRARY, **extra,
             **build_info.get(row["instance"], {}), "card": smi,
         })
     print(json.dumps({"hub_server": hub}))

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) flash-attention forward pass for bf16 q, k and v with head
-// dim 64 or 128: the tensor-core route of the port's transformer prefill.
+// dim 64, 80 or 128: the tensor-core route of the port's prefill (D 128: the
+// transformer families; D 80: zamba2-2.7b's shared attention; D 64: whisper).
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (the Pallas
 // TPU kernel _flash_kernel and its pallas_call) for those calls; every other
 // call (float32, head dims 16/32/256, operands TMA cannot address) keeps the
@@ -23,7 +24,10 @@
 // What bounds it: at the serving path's larger prefill (B 4, S 2032, H 28,
 // D 128, causal) the two products over the unmasked (q, k) pairs are 120 GFLOP
 // against 0.23 GB of q, k, v and o, so the bound is the bf16 tensor cores:
-// 0.12 ms at 989 TFLOP/s (the bytes take 0.07 ms at 3.35 TB/s).
+// 0.12 ms at 989 TFLOP/s (the bytes take 0.07 ms at 3.35 TB/s). At zamba2's
+// prefill (B 4, S 1024, H 32, D 80, causal) it is 21 GFLOP against 0.084 GB,
+// so the bytes bound it: 0.025 ms (the tensor cores need 0.022 ms). A D-80
+// tile costs the softmax, which sets the pace, as much as a D-128 tile.
 //
 // What the design does about it (FA3-shaped, one block per 128 query rows of
 // one (batch, head); grid (q tiles, H, B), q tiles reversed when causal):
@@ -31,8 +35,13 @@
 //   maps over (D, S, H, B) with the operands' own byte strides (a strided slice
 //   of a fused projection needs no copy), 128-byte swizzled. A box holds 64
 //   bf16 columns, so a D-128 row is two boxes, two 128-byte panels in shared
-//   memory, and the wgmma descriptors walk both. TMA zero-fills rows past Sq
-//   and Sk; those keys still score -inf by position.
+//   memory, and the wgmma descriptors walk both. A D-80 row is two boxes too:
+//   the second, at column 64, brings columns 64-79 and zero-fills 80-127 (past
+//   the map's D), so every tile is whole 128-byte panels and keeps the
+//   swizzle's alignment; Q.K^T reads five k-steps (four in panel 0, one in
+//   panel 1) and P.V is one m64n80k16 per 16 keys whose B spans both panels.
+//   TMA zero-fills rows past Sq and Sk; those keys still score -inf by
+//   position.
 // - K and V go through a ring of kStages stages with a "full" and an "empty"
 //   mbarrier each for K and for V: the consumers start Q.K^T while V is in
 //   flight, and free a stage's K as soon as Q.K^T has read it.
@@ -65,6 +74,9 @@
 // warpgroup's softmax with its own next wgmma (it needs more than 168
 // registers a thread), a TMA store of O, fp8, and native grouped-query
 // indexing (the TPU kernel takes expanded heads, and so does this interface).
+// At D 80 the zero-filled columns 80-127 take 37.5% of each tile's shared
+// memory; a 16-column tail panel with a 32-byte swizzle would save them at the
+// cost of splitting each P.V into n64 + n16 products.
 //
 // The launcher is a plain C function with zllm_flash_attention's signature;
 // the tensor maps are encoded on the host at each call with
@@ -89,11 +101,14 @@ constexpr float kNegInf = -1e30f; // the reference's finite mask value
 
 // Shared memory of one block, offsets from a 1024-byte-aligned base (the
 // 128-byte swizzle repeats every 8 rows of 128 bytes). A tile of R rows and D
-// columns is D / 64 panels of R x 128 bytes.
+// columns is ceil(D / 64) panels of R x 128 bytes: whole TMA boxes, the
+// zero-filled columns past D included, which is also what TMA counts on the
+// barrier.
 template <int D>
 struct Layout {
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBKV * D * 2;
+  static constexpr int kPanels = (D + kPanelCols - 1) / kPanelCols;
+  static constexpr int kQBytes = kPanels * kBQ * kPanelCols * 2;
+  static constexpr int kKVBytes = kPanels * kBKV * kPanelCols * 2;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
@@ -232,6 +247,23 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 80, f32) += A (64 x 16 bf16, registers) * B (16 x 80, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 64, f32) += A (64 x 16 bf16, registers) * B (16 x 64, shared memory, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t desc_b, int accumulate) {
@@ -254,6 +286,8 @@ template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t desc_v) {
   if constexpr (D == 128) {
     wgmma_rs_n128(d, a, desc_v, 1);
+  } else if constexpr (D == 80) {
+    wgmma_rs_n80(d, a, desc_v, 1);
   } else {
     wgmma_rs_n64(d, a, desc_v, 1);
   }
@@ -263,7 +297,8 @@ constexpr uint32_t kRowBytes = kPanelCols * 2;  // 128: one swizzled row of a pa
 
 // Issue S = Q K^T for one warpgroup's 64 query rows and one KV tile, as one
 // wgmma group: D / 16 steps of 16 columns; a step within a panel moves the
-// descriptors 32 bytes along the swizzled row, the next panel starts anew.
+// descriptors 32 bytes along the swizzled row, the next panel starts anew (at
+// D 80 the fifth step reads columns 64-79, never the zero-filled rest).
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&acc_s)[kBKV / 2], uint32_t q_rows, uint32_t k_tile) {
   wgmma_fence();
@@ -277,7 +312,8 @@ __device__ __forceinline__ void issue_qk(float (&acc_s)[kBKV / 2], uint32_t q_ro
 }
 
 // Issue O += P V as one wgmma group: kBKV / 16 steps of 16 keys, each 16 rows
-// of 128 bytes on; a D-128 row of V spans two panels, kBKV rows apart.
+// of 128 bytes on; a D-128 or D-80 row of V spans two panels, kBKV rows apart
+// (the descriptor's leading byte offset), D 80 reading 16 columns of the second.
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2], const uint32_t (&pa)[kBKV / 16][4],
                                          uint32_t v_tile) {
@@ -374,7 +410,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int Sq,
                       int Sk, Strides so, int causal, int window, float scale_log2) {
   using L = Layout<D>;
-  constexpr int kPanels = D / kPanelCols;
+  constexpr int kPanels = L::kPanels;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
@@ -563,7 +599,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t
 
 extern "C" {
 
-// zllm_flash_attention's signature. Takes bf16 (dtype 1) with D 64 or 128;
+// zllm_flash_attention's signature. Takes bf16 (dtype 1) with D 64, 80 or 128;
 // the Python rule (kernels/flash_attention.py::route) also requires 16-byte
 // aligned base pointers and B/S/H strides. Anything else is refused with
 // cudaErrorInvalidValue.
@@ -577,6 +613,7 @@ int zllm_flash_attention_sm90(const void* q, const void* k, const void* v, void*
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64: return static_cast<int>(launch<64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, st));
+    case 80: return static_cast<int>(launch<80>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, st));
     case 128: return static_cast<int>(launch<128>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

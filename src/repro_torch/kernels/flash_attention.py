@@ -4,8 +4,8 @@
 ``flash_attention`` replaces the Pallas ``flash_attention`` with one of two
 CUDA kernels, picked by :func:`route`: ``"sm90"`` (``csrc/flash_attention_sm90.cu``:
 bf16 tiles on the tensor cores through ``wgmma``, loaded by TMA) for bf16
-operands of head dim 64 or 128 whose base pointers and B/S/H strides TMA can
-address (multiples of 16 bytes), and ``"simt"`` (``csrc/flash_attention.cu``:
+operands of head dim 64, 80 or 128 whose base pointers and B/S/H strides TMA
+can address (multiples of 16 bytes), and ``"simt"`` (``csrc/flash_attention.cu``:
 float32 FMAs) for every other call. Both take the reference's layout, q
 (B, Sq, H, D) and k, v (B, Sk, H, D) with grouped-query heads already expanded,
 in float32 or bfloat16, and read the operands in place through their strides
@@ -27,7 +27,7 @@ __all__ = ["flash_attention", "route", "route_launches", "reset_route_launches",
            "SM90_HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the head dims the kernels are built for
-SM90_HEAD_DIMS = (64, 128)          # the head dims of the sm90 route
+SM90_HEAD_DIMS = (64, 80, 128)      # the head dims of the sm90 route
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535  # heads and batch ride the grid's y and z dims
 _TMA_ALIGN = 16         # bytes: a tensor map's base address and strides are multiples of it
@@ -69,7 +69,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel a call takes: ``"sm90"`` when q, k and v are bf16 with head
-    dim 64 or 128, D contiguous, and every base pointer and every B/S/H byte
+    dim 64, 80 or 128, D contiguous, and every base pointer and every B/S/H byte
     stride is a positive multiple of 16 below 2^40 (what a TMA tensor map can
     address; a dim of extent 1 is never stepped, so its stride is free);
     ``"simt"`` otherwise. Reads only dtypes, shapes, pointers and strides."""

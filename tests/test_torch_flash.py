@@ -22,7 +22,7 @@ from repro.models import layers as JL
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention, route
+from repro_torch.kernels.flash_attention import HEAD_DIMS, SM90_HEAD_DIMS, flash_attention, route
 from repro_torch.models import layers as TL
 
 # (B, S, H, D, causal, window): tests/test_flash_kernel.py:12-19, block sizes dropped
@@ -147,11 +147,22 @@ def test_flash_plain_path_matches_jax_at_reference_head_dims(D, dtype):
 
 
 def test_head_dim_80_takes_the_simt_route():
-    """zamba2-2.7b's head dim 80: the wrapper accepts it, and bf16 at D 80
-    takes the SIMT kernel (the sm90 route is built for D 64 and 128)."""
+    """zamba2-2.7b's head dim 80 takes the SIMT kernel where the tensor cores
+    do not: in float32, and for a bf16 operand no tensor map can address (a
+    base pointer 2 bytes off a 16-byte boundary)."""
     assert 80 in HEAD_DIMS
     q = torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16)
-    assert route(q, q, q) == "simt"
+    assert route(q.float(), q.float(), q.float()) == "simt"
+    off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+    assert off.data_ptr() % 16 == 2 and route(off, q, q) == "simt"
+
+
+def test_head_dim_80_takes_the_sm90_route():
+    """bf16 at zamba2-2.7b's head dim 80 takes the sm90 kernel, and so does a
+    D 64 slice of a D 80 tensor (its S stride, 160 bytes, TMA can step)."""
+    assert 80 in SM90_HEAD_DIMS
+    q = torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16)
+    assert route(q, q, q) == "sm90"
     assert route(q[..., :64], q[..., :64], q[..., :64]) == "sm90"
 
 

@@ -223,6 +223,12 @@ def test_device_store_matches_numpy_store(cuda, tmp_path):
     assert blobs["numpy"] and blobs["numpy"] == blobs["torch"]
 
 
+FLASH_CASES_D80 = [
+    (2, 333, 333, 4, 80, True, 0),
+    (1, 64, 300, 2, 80, False, 0),
+    (1, 200, 200, 2, 80, True, 64),
+    (4, 1024, 1024, 32, 80, True, 0),
+]
 FLASH_CASES = [
     # (B, Sq, Sk, H, D, causal, window): tests/test_flash_kernel.py:12-19 first
     (2, 256, 256, 4, 128, True, 0),
@@ -249,12 +255,10 @@ FLASH_CASES = [
     # 4 left-padded to 2032 (not a multiple of either tile) and to 512 tokens
     (4, 2032, 2032, 28, 128, True, 0),
     (4, 512, 512, 28, 128, True, 0),
-    # head dim 80 (zamba2-2.7b's shared attention; the simt route in both
-    # dtypes): ragged, Sq != Sk, a window, and the family phase's prefill
-    (2, 333, 333, 4, 80, True, 0),
-    (1, 64, 300, 2, 80, False, 0),
-    (1, 200, 200, 2, 80, True, 64),
-    (4, 1024, 1024, 32, 80, True, 0),
+    # head dim 80 (zamba2-2.7b's shared attention; sm90 in bf16, and
+    # test_flash_attention_simt_at_head_dim_80 runs simt on the bf16 inputs):
+    # ragged, Sq != Sk, a window, and the family phase's prefill
+    *FLASH_CASES_D80,
     # whisper-medium's three attentions at head dim 64: the encoder (1500
     # frames, bidirectional), the decoder's causal self attention, and cross
     # attention from 64 decoder tokens to the 1500 frames
@@ -276,8 +280,8 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, Sq, Sk, H, D, causal, window = case
     q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), dtype, 20, cuda)
-    # contiguous new tensors: bf16 at D 64/128 takes the tensor cores
-    route = "sm90" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    # contiguous new tensors: bf16 at D 64/80/128 takes the tensor cores
+    route = "sm90" if dtype == torch.bfloat16 and D in flash_attention.SM90_HEAD_DIMS else "simt"
     assert flash_attention.route(q, k, v) == route
     before = _build.launch_counts()["flash_attention"]
     by_route = flash_attention.route_launches()
@@ -292,10 +296,27 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_flash_attention_reads_strided_operands(cuda):
+@pytest.mark.parametrize("case", FLASH_CASES_D80)
+def test_flash_attention_simt_at_head_dim_80(cuda, case):
+    """The SIMT kernel on bf16 at D 80, which the wrapper now sends to sm90:
+    launched directly, it still matches the plain version."""
+    B, Sq, Sk, H, D, causal, window = case
+    q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), torch.bfloat16, 20, cuda)
+    before = flash_attention.route_launches()
+    got = flash_attention._launch("simt", q, k, v, causal, window)
+    torch.cuda.synchronize()
+    after = flash_attention.route_launches()
+    assert {r: after[r] - before[r] for r in after} == {"sm90": 0, "simt": 1}
+    want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
+def test_flash_attention_reads_strided_operands(cuda, D):
     """q, k and v sliced out of one fused (B, S, 3H, D) projection: the kernel
-    reads them through their strides."""
-    B, S, H, D = 2, 130, 4, 64
+    reads them through their strides (at D 80 a row is 160 bytes, two TMA
+    boxes, the second partly past D)."""
+    B, S, H = 2, 130, 4
     qkv = torch.randn((B, S, 3 * H, D), generator=torch.Generator(device="cuda").manual_seed(21),
                       device=cuda).to(torch.bfloat16)
     q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
@@ -306,7 +327,7 @@ def test_flash_attention_reads_strided_operands(cuda):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
 def test_flash_attention_misaligned_slice_takes_simt(cuda, D):
     """A bf16 operand 2 bytes off a 16-byte boundary is one no tensor map can
     address: the call takes the SIMT kernel and is still right."""
@@ -325,8 +346,8 @@ def test_flash_attention_misaligned_slice_takes_simt(cuda, D):
 
 
 def test_flash_attention_route_rules_by_head_dim(cuda):
-    """bf16 at D 64 and 128 takes sm90; D 80 and the other head dims, and
-    float32 at any, take simt; both launch and match the plain version."""
+    """bf16 at D 64, 80 and 128 takes sm90; the other head dims, and float32
+    at any, take simt; both launch and match the plain version."""
     for D in flash_attention.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = _qkv((1, 70, 2, D), (1, 70, 2, D), dt, D, cuda)
