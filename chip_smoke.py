@@ -38,14 +38,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    tests' band checks. The hamming launches of phases 4b and 6 show that bit
    distance went through its kernel;
 7. serve: the paper's serving cold start at Qwen2-7B's published widths,
-   depth cut from 28 decoder layers to 4 (full-vocabulary embed and lm_head
+   depth cut from 28 decoder layers to 2 (full-vocabulary embed and lm_head
    kept). Base parameters drawn on the card with ``init_params``, a fine-tune
    from ``make_finetune``, both written as ``params/<name>`` BF16 safetensors
    and ingested into the port's store (the fine-tune BitX-coded against its
    declared base); ``ServeEngine.from_store`` cold-starts the fine-tune
    (params bit-equal to the source) and ``RequestBatcher(batch_size=4,
    n_new=16)`` serves 8 requests of 33-2032 prompt tokens. Prefill runs the
-   flash kernel in every layer (exactly 4 layers x 2 prefills). The same
+   flash kernel in every layer (exactly 2 layers x 2 prefills). The same
    requests are then served again with each flash call held against its plain
    version on its own inputs, and the prefill logits of the flash and plain
    attention engines are held to the float32 model's. Every flash call of the
@@ -118,6 +118,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    end at step 8 and exit 0, its checkpoints holding AdamW state and
    BitX-chained to the first in the store, the kernel library loaded from
    phase 2's build. The results go on a JSON line of their own (``train``).
+11. mesh: 11a phase 10a's cell (Qwen2-7B widths, 2 layers, 4 x 1024 tokens
+   in 2 microbatches, AdamW, float32 accumulators, TF32) trained 1 untimed and
+   5 timed steps, in turns, by an unsharded ``Trainer`` and by
+   ``Trainer(mesh_shape=(1, 1))`` (DTensor parameters, optimizer state and
+   batches on a one-rank NCCL mesh), both from the seed: the loss, grad norm
+   and every parameter after each step must be bit-equal, or within 1e-6
+   relative; the median of the timed steps' ms of both (the difference is
+   DTensor's host cost). Then a prefill of 4 x 1024
+   tokens on that mesh with attn "flash": exactly 2 ``sm90`` launches
+   (``route_launches``), logits within phase 3's bf16 tolerance of the
+   unsharded prefill's. 11b the dry run at published width and depth,
+   ``python -m repro_torch.launch.dryrun`` as two child processes at once on
+   the card's host, after 11c (CPU only; a fake process group of 256 or 512
+   ranks): qwen2-7b ``train_4k`` on the single-pod mesh and mixtral-8x7b
+   ``decode_32k`` on the multi-pod mesh, each record's per-device FLOPs,
+   bytes, collective bytes by kind, peak GiB, H100 roofline row and host
+   seconds printed. 11c one more step of 11a's unsharded cell counted by
+   ``repro_torch.launch.op_cost`` on the card's tensors (not timed): its dot
+   FLOPs within 2% of the closed form (``op_cost.train_dot_flops``), the
+   roofline bound from ``launch.mesh.HW`` against 11a's median step, and the
+   top 5 hotspots by FLOPs and by bytes. The results go on a JSON line of
+   their own (``mesh``).
 
 Phase 3 also holds both flash-attention kernels (routes ``sm90`` and ``simt``)
 against their plain version (``ref.mha_reference``) at the reference tests'
@@ -132,8 +154,8 @@ causal) and at S 2048, beside their bound, the plain version and
 time per call.
 
 The last lines are the hub server's line, the families line, the train line,
-the card's name and power limit, the kernels line (one JSON object) and the
-result line
+the mesh line, the card's name and power limit, the kernels line (one JSON
+object) and the result line
 ``{"ok": true, "device": {...}}``. Model files and stores go to a temporary
 directory outside the repository, removed at the end.
 """
@@ -220,7 +242,7 @@ FLASH_LIBRARY = "torch.nn.functional.scaled_dot_product_attention"
 
 # the serving run of phase 7 (its store is phase 8's)
 SERVE_REPOS = ("qwen/base-serve", "alice/ft-serve")  # base, fine-tune declaring it
-SERVE_LAYERS = 4
+SERVE_LAYERS = 2                # of 28: cut from 4 to keep the smoke under 1000 s
 SERVE_PROMPTS = (2032, 1500, 1024, 700, 512, 300, 128, 33)
 SERVE_BATCH, SERVE_NEW = 4, 16
 # Prefill logits of the bf16 engines are held to the float32 model on the same
@@ -905,7 +927,7 @@ def _serve(engine: ServeEngine, prompts) -> tuple:
 
 
 def phase_serve(tmp: str, seed: int) -> tuple:
-    """Cold-start a 4-layer Qwen2-7B-width fine-tune from the store and serve
+    """Cold-start a 2-layer Qwen2-7B-width fine-tune from the store and serve
     8 requests; returns the flash launches of the serving run and the kernel's
     largest difference from its plain version on the inputs the run gave it."""
     cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=SERVE_LAYERS)
@@ -1231,7 +1253,7 @@ def phase_hub(tmp: str, seed: int, smi: str) -> dict:
     """Serve phase 7's store from ``python -m repro_torch.serve.store_server``
     in a process of its own: ranged tensor GETs (BitX and ZipNN lanes,
     concurrent over distinct tensors and single-flighted over one), a PUT of a
-    second 4-layer Qwen2-7B-width fine-tune and a whole-file GET of it, every
+    second 2-layer Qwen2-7B-width fine-tune and a whole-file GET of it, every
     byte held against its source. Returns the server's counts."""
     cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=SERVE_LAYERS)
     base_id, ft_id = SERVE_REPOS
@@ -1923,10 +1945,10 @@ class _TimedManager(CheckpointManager):
         super().__init__(*args, **kwargs)
         self.spans = {}
 
-    def save(self, step, params, opt_state=None):
+    def _write(self, step, flat, path):
         t0 = time.perf_counter()
         try:
-            return super().save(step, params, opt_state)
+            return super()._write(step, flat, path)
         finally:
             self.spans[step] = (t0, time.perf_counter())
 
@@ -2220,6 +2242,249 @@ def phase_train(tmp: str, seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the device mesh on the card, the dry run and its counter
+# ---------------------------------------------------------------------------
+
+MESH_WARMUP = 1                  # 11a: untimed first steps (first dispatch, NCCL set-up)
+MESH_STEPS = 5                   # 11a: timed steps of the unsharded and the (1, 1)-mesh trainer
+MESH_TOL = 1e-6                  # relative: loss and parameters, when not bit-equal
+MESH_PREFILL_B, MESH_PREFILL_S = 4, 1024
+MESH_PREFILL_TOL = FLASH_TOL[torch.bfloat16]   # of max |logits|: the flash calls' own tolerance
+COUNT_TOL = 0.02                 # 11c: counted dot FLOPs against their closed form
+# 11b: the dry run at published width and depth, as child processes on the
+# card's host (CPU only: they see no card), both at once, after 11a and 11c
+DRYRUN_CELLS = (("qwen2-7b", "train_4k", "single"), ("mixtral-8x7b", "decode_32k", "multi"))
+DRYRUN_S = 300                   # each must end within this
+
+
+def phase_dryruns(smi: str) -> list:
+    """11b: the cells of ``DRYRUN_CELLS``, each dry-run by ``python -m
+    repro_torch.launch.dryrun`` in a process of its own, all at once; each
+    record and its H100 roofline row."""
+    from repro_torch.launch.roofline import roofline_row
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(here / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    out_dir = tempfile.mkdtemp(prefix="zllm-chip-smoke-dryrun-")
+    names = [f"{arch}__{shape}__{mesh}" for arch, shape, mesh in DRYRUN_CELLS]
+    procs, ended = [], {}
+    try:
+        t0 = time.perf_counter()
+        for (arch, shape, mesh), name in zip(DRYRUN_CELLS, names):
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, "--mesh", mesh, "--out", out_dir]
+            with open(os.path.join(out_dir, f"{name}.log"), "w") as log_file:
+                procs.append(subprocess.Popen(cmd, env=env, cwd=str(here), stdout=log_file,
+                                              stderr=subprocess.STDOUT))
+        while len(ended) < len(procs):
+            for n, proc in enumerate(procs):
+                if n not in ended and proc.poll() is not None:
+                    ended[n] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > DRYRUN_S:
+                late = [names[n] for n in range(len(procs)) if n not in ended]
+                raise AssertionError(f"mesh: the dry runs {late} outlived {DRYRUN_S} s")
+            time.sleep(0.1)
+        out = []
+        for n, ((arch, shape, mesh), name) in enumerate(zip(DRYRUN_CELLS, names)):
+            if procs[n].returncode != 0:
+                output = Path(out_dir, f"{name}.log").read_text()
+                raise AssertionError(f"mesh: the dry run of {arch} {shape} {mesh} exited "
+                                     f"{procs[n].returncode}\n{output[-4000:]}")
+            rec = json.loads(Path(out_dir, f"{name}.json").read_text())
+            row = roofline_row(rec)
+            out.append({k: rec[k] for k in ("arch", "shape", "mesh", "chips", "flops_per_device",
+                                            "dot_flops_per_device", "bytes_per_device",
+                                            "model_flops_global", "wall_s")}
+                       | {"collectives": rec["collectives"],
+                          "peak_GiB": rec["memory_analysis"]["peak_size_in_bytes"] / 2**30,
+                          "roofline": {k: row[k] for k in ("compute_s", "memory_s",
+                                                           "collective_s", "dominant",
+                                                           "roofline_fraction", "rf_compute",
+                                                           "useful_ratio")},
+                          "process_s": ended[n]})
+            c = rec["collectives"]
+            log(f"mesh 11b: dry run {arch} {shape} on the {mesh} mesh ({rec['chips']} ranks of a "
+                f"fake group, on this host's CPU): per device {rec['flops_per_device']:.4e} FLOPs "
+                f"({rec['dot_flops_per_device']:.4e} in dots), {rec['bytes_per_device']:.4e} "
+                f"bytes, collectives {c['collective_total_bytes']:.4e} B {c['by_op']} "
+                f"({c['counts']}), peak {out[-1]['peak_GiB']:.2f} GiB; H100 roofline: compute "
+                f"{row['compute_s']:.4f} s, memory {row['memory_s']:.4f} s, collective "
+                f"{row['collective_s']:.4f} s, {row['dominant']}-bound, RF "
+                f"{row['roofline_fraction']:.3f}; the step ran {rec['wall_s']:.1f} s, the "
+                f"process {ended[n]:.1f} s on the host; card: {smi}")
+        return out
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _mesh_trainers(tmp: str, seed: int):
+    """11a's two trainers: one device, no process group; and a (1, 1) mesh
+    (NCCL, one rank). Same config, same seed, no checkpoints."""
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=TRAIN_LAYERS)
+    out = []
+    for name, shape in (("one", None), ("mesh", (1, 1))):
+        tc = TrainConfig(arch=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                         microbatches=TRAIN_MICRO, steps=MESH_WARMUP + MESH_STEPS,
+                         ckpt_every=10**9,
+                         run_dir=os.path.join(tmp, f"mesh-{name}"), resume=False,
+                         mesh_shape=shape, seed=seed,
+                         optimizer=OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR),
+                         device=DEVICE)
+        out.append(Trainer(tc, run_id=f"mesh-{name}"))
+    return cfg, out
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    scale = max(float(b.float().abs().max()), 1e-30)
+    return float((a.float() - b.float()).abs().max()) / scale
+
+
+def phase_mesh(tmp: str, seed: int, smi: str) -> dict:
+    """Phase 11: 11a the trainer on a (1, 1) mesh against the unsharded one,
+    step for step, and a prefill on that mesh through the flash kernel; 11b
+    the dry-run cells; 11c one step of the unsharded cell counted by
+    ``op_cost`` against its closed form and the clock."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import hotspots
+    from repro_torch.launch.mesh import HW
+    from repro_torch.launch.op_cost import OpCost, train_dot_flops
+    from repro_torch.sharding.rules import named_sharding
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True   # as phase 10: the cell is phase 10a's
+    try:
+        cfg, (one, mesh) = _mesh_trainers(tmp, seed)
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"mesh: the (1, 1) mesh runs on {dist.get_backend()} with "
+                                 f"{dist.get_world_size()} ranks, not one NCCL rank")
+        log(f"mesh 11a: phase 10a's cell ({cfg.name} widths, {cfg.n_layers} layers, "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, AdamW lr "
+            f"{TRAIN_LR}, float32 accumulators, TF32) trained {MESH_WARMUP} untimed + "
+            f"{MESH_STEPS} timed steps by an unsharded Trainer and by "
+            f"Trainer(mesh_shape=(1, 1)) on NCCL with one rank, from seed {seed}, in turns")
+        steps, bit_equal, worst = [], True, 0.0
+        for i in range(MESH_WARMUP + MESH_STEPS):
+            hb = one.data.batch_at(i)
+            torch.cuda.synchronize()
+            r1 = one.train_step(hb)
+            torch.cuda.synchronize()
+            r2 = mesh.train_step(hb)
+            torch.cuda.synchronize()
+            same = r1["loss"] == r2["loss"] and r1["grad_norm"] == r2["grad_norm"]
+            for k, v in one.params.items():
+                w = mesh.params[k]
+                if not isinstance(w, DTensor):
+                    raise AssertionError(f"mesh: {k} is not a DTensor on the mesh")
+                w = w.to_local()
+                if not torch.equal(v, w):
+                    same = False
+                    worst = max(worst, _rel_err(w, v))
+            worst = max(worst, abs(r2["loss"] - r1["loss"]) / abs(r1["loss"]),
+                        abs(r2["grad_norm"] - r1["grad_norm"]) / abs(r1["grad_norm"]))
+            bit_equal &= same
+            steps.append({"step": i + 1, "timed": i >= MESH_WARMUP,
+                          "loss": r1["loss"], "loss_mesh": r2["loss"],
+                          "grad_norm": r1["grad_norm"], "grad_norm_mesh": r2["grad_norm"],
+                          "ms": r1["sec"] * 1e3, "ms_mesh": r2["sec"] * 1e3, "bit_equal": same})
+        if not bit_equal and not worst <= MESH_TOL:
+            raise AssertionError(f"mesh: the (1, 1) mesh strays {worst:.3e} (relative) from the "
+                                 f"unsharded trainer, above {MESH_TOL}: {steps}")
+        ms_one = float(np.median([s["ms"] for s in steps if s["timed"]]))
+        ms_mesh = float(np.median([s["ms_mesh"] for s in steps if s["timed"]]))
+        log(f"mesh 11a: losses {[round(s['loss'], 6) for s in steps]} (mesh "
+            f"{[round(s['loss_mesh'], 6) for s in steps]}); loss, grad norm and every parameter "
+            f"after each step {'bit-equal' if bit_equal else f'within {worst:.3e} relative'}; "
+            f"step ms unsharded {[round(s['ms'], 1) for s in steps]}, mesh "
+            f"{[round(s['ms_mesh'], 1) for s in steps]} (the first {MESH_WARMUP} untimed); median "
+            f"of the {MESH_STEPS} timed {ms_one:.1f} vs {ms_mesh:.1f} ms (DTensor's host cost "
+            f"on the card {ms_mesh - ms_one:+.1f} ms); card: {smi}")
+
+        # a prefill on the mesh through the flash kernel, against the unsharded one
+        prompts = torch.from_numpy(one.data.batch_at(MESH_WARMUP + MESH_STEPS)["tokens"][
+            :MESH_PREFILL_B, :MESH_PREFILL_S]).to(DEVICE)
+        sharded = get_model(cfg, attn="flash", mesh=mesh.mesh, rules=mesh.rules)
+        tok = named_sharding(mesh.mesh, ("batch", None), mesh.rules, prompts.shape).distribute(
+            prompts)
+        fa.reset_route_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_mesh, cache = sharded.prefill(mesh.params, {"tokens": tok})
+        logits_mesh = logits_mesh.full_tensor()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        routes = fa.route_launches()
+        local = {k: v.to_local() for k, v in mesh.params.items()}
+        logits_one, _ = get_model(cfg, attn="flash").prefill(local, {"tokens": prompts})
+        del cache
+        prefill_err = _rel_err(logits_mesh, logits_one)
+        if routes != {"sm90": cfg.n_layers, "simt": 0}:
+            raise AssertionError(f"mesh: the mesh prefill launched {routes}, want "
+                                 f"{cfg.n_layers} sm90 launches")
+        if not prefill_err <= MESH_PREFILL_TOL:
+            raise AssertionError(f"mesh: prefill logits stray {prefill_err:.3e} of max |logits| "
+                                 f"from the unsharded prefill's (limit {MESH_PREFILL_TOL})")
+        log(f"mesh 11a: prefill of {MESH_PREFILL_B} x {MESH_PREFILL_S} tokens on the mesh, "
+            f"attn 'flash': launches by route {routes}, {prefill_ms:.1f} ms, logits "
+            f"{prefill_err:.3e} of max |logits| from the unsharded prefill's "
+            f"(limit {MESH_PREFILL_TOL}); card: {smi}")
+        del local, logits_one, logits_mesh, sharded
+        mesh_params_bytes = sum(v.to_local().numel() * v.to_local().element_size()
+                                for v in mesh.params.values())
+        del mesh
+        torch.cuda.empty_cache()
+
+        # 11c: one more step of the unsharded cell, counted op by op
+        hb = one.data.batch_at(MESH_WARMUP + MESH_STEPS)
+        with OpCost(attribute=True) as cost:
+            one.train_step(hb)
+        torch.cuda.synchronize()
+        closed = train_dot_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        c = cost.total
+        if not abs(c.dot_flops - closed) <= COUNT_TOL * closed:
+            raise AssertionError(f"mesh: counted {c.dot_flops:.6e} dot FLOPs, the closed form "
+                                 f"{closed:.6e} (tolerance {COUNT_TOL})")
+        compute_ms = c.dot_flops / HW.PEAK_FLOPS_BF16 * 1e3
+        memory_ms = c.bytes / HW.HBM_BW * 1e3
+        bound_ms = max(compute_ms, memory_ms)
+        tops = {m: hotspots.levels(cost, m) for m in ("flops", "bytes")}
+        top5 = {m: [(n, v) for n, v in (lv[-1][2])[:5]] for m, lv in tops.items()}
+        log(f"mesh 11c: one step of the unsharded cell counted: {c.flops:.6e} FLOPs, "
+            f"{c.dot_flops:.6e} in dots (closed form {closed:.6e}, "
+            f"{c.dot_flops / closed - 1:+.2e}), {c.bytes:.6e} bytes moved by its ops; roofline "
+            f"bound from HW (H100 SXM datasheet) {bound_ms:.2f} ms (compute {compute_ms:.2f}, "
+            f"memory {memory_ms:.2f}); measured median step {ms_one:.1f} ms reaches "
+            f"{bound_ms / ms_one:.3f} of the bound; card: {smi}")
+        for m, rows in top5.items():
+            log(f"mesh 11c: top 5 hotspots by {m} ({tops[m][-1][0]}): " + "; ".join(
+                f"{n} {v:.4e}" for n, v in rows))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    dry = phase_dryruns(smi)
+    out = {"card": smi, "steps": steps, "bit_equal": bit_equal, "max_rel_err": worst,
+           "step_ms_median": ms_one, "step_ms_median_mesh": ms_mesh,
+           "mesh_param_bytes": mesh_params_bytes,
+           "prefill": {"launches": routes, "ms": prefill_ms, "rel_err": prefill_err},
+           "count": {"flops": c.flops, "dot_flops": c.dot_flops, "dot_flops_closed_form": closed,
+                     "bytes": c.bytes, "collective_bytes": c.collective_total,
+                     "compute_ms": compute_ms, "memory_ms": memory_ms, "bound_ms": bound_ms,
+                     "fraction_of_bound": bound_ms / ms_one, "top5": top5},
+           "dryrun": dry, "seconds": time.perf_counter() - t_phase}
+    log(f"mesh: phase 11 took {out['seconds']:.1f} s; card: {smi}")
+    return out
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -2271,6 +2536,11 @@ def main() -> int:
         train = phase_train(tmp, SEED, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-mesh-")
+    try:
+        mesh = phase_mesh(tmp, SEED, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # no path of the JAX package calls xor_2d: its count is phase 3's
     launches["xor"] = report["xor"]["launches"]
     log(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -2308,8 +2578,10 @@ def main() -> int:
                        "phase 9a (whisper-medium)")}
     rows = {
         "sm90": {"main": flash_reports["sm90"],
-                 "launches": sum(n for _, n, _ in sm90_paths.values()),
-                 "launched_by": "phases 7 (serve), 9a (whisper-medium) and 9b (zamba2-2.7b)",
+                 "launches": sum(n for _, n, _ in sm90_paths.values())
+                 + mesh["prefill"]["launches"]["sm90"],
+                 "launched_by": "phases 7 (serve), 9a (whisper-medium), 9b (zamba2-2.7b) and "
+                                "11a (the prefill on a (1, 1) mesh, D 128)",
                  "instance": "flash_fwd_sm90_kernel<128>",
                  "instances": {f"flash_fwd_sm90_kernel<{D}>": {
                      **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
@@ -2339,6 +2611,7 @@ def main() -> int:
     print(json.dumps({"hub_server": hub}))
     print(json.dumps({"families": families}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"mesh": mesh}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -17,8 +17,16 @@ so the manager:
 * optionally drops the plain file afterwards (``keep_plain=False``) so the
   run directory holds only the compressed containers,
 * restores ELASTICALLY: tensors are stored unsharded and whole, so a
-  checkpoint restores onto any device (``restore_sharded``) and into a run
-  with another global batch.
+  checkpoint restores onto any device or any device mesh
+  (``restore_sharded``, tensor by tensor from the memory-mapped file) and
+  into a run with another global batch.
+
+On a mesh (DTensor state) the tensors are gathered whole one at a time
+(``full_tensor``, a collective, so every rank calls ``save`` and joins each
+gather in the file's order): rank 0 writes each into the file before the next
+is gathered, the other ranks drop theirs, and rank 0 alone writes the
+manifest and the store's containers while every rank waits for it. The files
+are byte-identical to a one-device run's.
 
 The files are byte-identical to the reference manager's for the same
 parameters and optimizer state: ``params/<name>`` in the order of the params
@@ -32,11 +40,13 @@ an int16 view) where the reference gives numpy arrays.
 only blocks on the previous save's completion — single-buffered
 write-behind). It copies the state to the host before it returns: the
 optimizer updates the parameters in place, and on the CPU ``.cpu()`` would
-hand back the very tensors the next step writes.
+hand back the very tensors the next step writes. On a mesh only rank 0 keeps
+that copy; the other ranks join its gathers and keep nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -46,9 +56,10 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.dedup import sha256_bytes
+from repro_torch.core.dedup import sha256_file
 from repro_torch.core.pipeline import ZLLMStore
 from repro_torch.formats import safetensors as st
+from repro_torch.sharding.rules import whole
 
 __all__ = ["CheckpointManager"]
 
@@ -71,6 +82,13 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _tree_map2(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over two trees of the same dicts."""
+    if isinstance(tree, dict):
+        return {k: _tree_map2(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
 def _opt_key(path: Tuple[str, ...]) -> str:
     return "opt/" + "/".join(path)
 
@@ -88,26 +106,44 @@ def _to_numpy(x) -> Tuple[np.ndarray, Optional[str]]:
     return arr, None
 
 
-def _host_copy(x) -> torch.Tensor:
-    return x.detach().to("cpu", copy=True)
+def _tag(x) -> str:
+    """The safetensors dtype tag ``x`` is written under, read from its dtype
+    alone (a DTensor is not gathered for it)."""
+    arr, tag = _to_numpy(torch.empty(0, dtype=x.dtype) if isinstance(x, torch.Tensor) else x)
+    return tag or st.DTYPE_TO_STR[arr.dtype.name]
 
 
-def _load_tensors(data: bytes) -> Dict[str, torch.Tensor]:
-    """Every tensor of a safetensors file's bytes, as CPU tensors that own
-    their memory; ``BF16`` payloads become ``torch.bfloat16`` with the same
+def _payload(x) -> np.ndarray:
+    """``x`` whole on the host, as the array written under :func:`_tag`."""
+    return _to_numpy(whole(x))[0]
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _host_tensor(ti: st.TensorInfo, arr: np.ndarray) -> torch.Tensor:
+    """One tensor of a safetensors file (its bit-view array) as a CPU tensor
+    that owns its memory; ``BF16`` becomes ``torch.bfloat16`` with the same
     bits."""
-    infos, _, start = st.read_header_blob(data)
-    out = {}
-    for ti in infos:
-        dt = ti.np_view_dtype
-        lo, hi = ti.data_offsets
-        arr = np.frombuffer(data, dtype=dt, count=(hi - lo) // dt.itemsize,
-                            offset=start + lo).reshape(ti.shape)
-        if ti.dtype_str == "BF16":
-            out[ti.name] = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-        else:
-            out[ti.name] = torch.from_numpy(arr.copy())
-    return out
+    if ti.dtype_str == "BF16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _dtype_of(leaf) -> torch.dtype:
+    """A template leaf's dtype (a tensor's, or a ParamSpec's name)."""
+    dt = leaf.dtype
+    return dt if isinstance(dt, torch.dtype) else getattr(torch, dt)
 
 
 def _opt_from_flat(flat: Dict[str, torch.Tensor], template, path: Tuple[str, ...] = ()):
@@ -115,8 +151,7 @@ def _opt_from_flat(flat: Dict[str, torch.Tensor], template, path: Tuple[str, ...
     ParamSpecs), each leaf read from ``flat`` in the leaf's dtype."""
     if isinstance(template, dict):
         return {k: _opt_from_flat(flat, v, path + (str(k),)) for k, v in template.items()}
-    dt = template.dtype
-    return flat[_opt_key(path)].to(dt if isinstance(dt, torch.dtype) else getattr(torch, dt))
+    return flat[_opt_key(path)].to(_dtype_of(template))
 
 
 class CheckpointManager:
@@ -155,19 +190,26 @@ class CheckpointManager:
         return os.path.join(self.run_dir, f"checkpoint-{step:08d}.safetensors")
 
     def save(self, step: int, params: Dict, opt_state: Optional[Dict] = None) -> str:
-        flat = self._flatten(params, opt_state)
-        tensors, tags = {}, {}
-        for k, v in flat.items():
-            arr, tag = _to_numpy(v)
-            tensors[k] = arr
-            if tag:
-                tags[k] = tag
+        """Write checkpoint ``step`` (and ingest it into the store). On a mesh
+        every rank calls it: each gathers the tensors, rank 0 writes, and all
+        return when the write is done."""
         path = self.ckpt_path(step)
-        st.save_file(tensors, path, metadata={"step": str(step), "run_id": self.run_id},
-                     dtype_tags=tags)
-        del tensors, flat
-        with open(path, "rb") as f:
-            digest = sha256_bytes(f.read())
+        flat = self._flatten(params, opt_state)
+        if _rank() == 0:
+            self._write(step, flat, path)
+        else:
+            for v in flat.values():
+                whole(v)          # rank 0's gather of this tensor, in the file's order
+        _barrier()
+        return path
+
+    def _write(self, step: int, flat: Dict[str, Any], path: str) -> None:
+        """The file, gathered and written one tensor at a time, its manifest
+        entry, and its ingest into the store."""
+        entries = [(k, _tag(v), tuple(v.shape)) for k, v in flat.items()]
+        st.save_stream(entries, (_payload(v) for v in flat.values()), path,
+                       metadata={"step": str(step), "run_id": self.run_id})
+        digest, _ = sha256_file(path)
         manifest = {"step": step, "file": os.path.basename(path), "sha256": digest,
                     "time": time.time()}
         mpath = os.path.join(self.run_dir, "manifest.json")
@@ -189,19 +231,28 @@ class CheckpointManager:
                 self._base_key = f"{self.run_id}/{fname}"
             if not self.keep_plain:
                 os.remove(path)
-        return path
 
     def save_async(self, step: int, params: Dict, opt_state: Optional[Dict] = None):
-        """Write-behind save. Blocks only if the previous save is still running."""
+        """Write-behind save. Blocks only if the previous save is still running.
+        On a mesh every rank calls it; rank 0's thread writes."""
         self.wait()
         # snapshot to host, as copies, BEFORE returning control: the next
-        # optimizer step writes the parameters and moments in place
-        host_params = {k: _host_copy(v) for k, v in params.items()}
-        host_opt = _tree_map(_host_copy, opt_state) if opt_state is not None else None
+        # optimizer step writes the parameters and moments in place. Each
+        # tensor is gathered whole in turn; only rank 0 keeps it.
+        rank0 = _rank() == 0
+
+        def host_copy(x):
+            x = whole(x.detach())
+            return x.to("cpu", copy=True) if rank0 else None
+
+        host_params = {k: host_copy(v) for k, v in params.items()}
+        host_opt = _tree_map(host_copy, opt_state) if opt_state is not None else None
+        if not rank0:
+            return
 
         def work():
             try:
-                self.save(step, host_params, host_opt)
+                self._write(step, self._flatten(host_params, host_opt), self.ckpt_path(step))
             except BaseException as e:  # surfaced on next wait()
                 self._async_err = e
 
@@ -209,9 +260,12 @@ class CheckpointManager:
         self._async_thread.start()
 
     def wait(self):
+        """Until the last write-behind save is done (on a mesh, on rank 0:
+        every rank waits for it)."""
         if self._async_thread is not None:
             self._async_thread.join()
             self._async_thread = None
+        _barrier()
         if self._async_err is not None:
             err, self._async_err = self._async_err, None
             raise err
@@ -233,30 +287,79 @@ class CheckpointManager:
         """Returns (step, params dict of CPU tensors, opt_state or None).
         Reads the plain file when kept, else reconstructs it from the zLLM
         store. ``opt_template`` is the optimizer state's tree (tensors or
-        ``state_templates``' ParamSpecs): its structure and dtypes."""
-        step = step if step is not None else self.latest_step()
-        if step is None:
-            return None, None, None
-        fname = f"checkpoint-{step:08d}.safetensors"
+        ``state_templates``' ParamSpecs): its structure and dtypes. In a
+        process group of more than one rank every rank calls it."""
+        return self._restore(step, opt_template, torch.device("cpu"), {}, verify)
+
+    @contextlib.contextmanager
+    def _mapped(self, step: int, verify: bool = True) -> Iterator[st.SafetensorsFile]:
+        """Checkpoint ``step`` memory-mapped: the plain file, or, when only the
+        store holds it, a copy that rank 0 rebuilds from the store beside it
+        for every rank to map (unlinked once all have). In a process group
+        every rank enters it."""
         path = self.ckpt_path(step)
+        rebuilt = None
         if not os.path.exists(path):
             if self.store is None:
                 raise FileNotFoundError(f"{path} is gone and the manager has no store")
-            data = self.store.retrieve_file(self.run_id, fname, verify=verify)
-        else:
-            with open(path, "rb") as f:
-                data = f.read()
-        params, opt = self._unflatten(_load_tensors(data), opt_template)
+            rebuilt = path + ".restore"
+            if _rank() == 0:
+                data = self.store.retrieve_file(self.run_id, os.path.basename(path),
+                                                verify=verify)
+                with open(rebuilt + ".tmp", "wb") as f:
+                    f.write(data)
+                del data
+                os.replace(rebuilt + ".tmp", rebuilt)
+            _barrier()
+            path = rebuilt
+        with st.SafetensorsFile(path) as f:
+            if rebuilt is not None:
+                _barrier()          # every rank has mapped it
+                if _rank() == 0:
+                    os.remove(rebuilt)
+            yield f
+
+    def _restore(self, step: Optional[int], opt_template, dev: torch.device,
+                 placed_by: Dict[str, Any], verify: bool = True):
+        """(step, params, opt_state) of checkpoint ``step`` (default: the
+        latest), each tensor read from the mapped file on its own, in its
+        template's dtype, moved to ``dev`` and distributed by its entry of
+        ``placed_by`` (flat key -> NamedSharding) where it has one: no rank
+        holds the checkpoint whole in its memory."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None, None
+        dtypes = ({} if opt_template is None else
+                  {_opt_key(p): _dtype_of(t) for p, t in _leaves_with_path(opt_template)})
+        flat = {}
+        with self._mapped(step, verify) as f:
+            for ti in f.infos:
+                if ti.name.startswith("opt/") and opt_template is None:
+                    continue
+                x = _host_tensor(ti, f.tensor(ti.name))
+                if ti.name in dtypes:
+                    x = x.to(dtypes[ti.name])
+                x = x.to(dev)
+                flat[ti.name] = placed_by[ti.name].distribute(x) if ti.name in placed_by else x
+        params, opt = self._unflatten(flat, opt_template)
         return step, params, opt
 
-    def restore_sharded(self, device, step: Optional[int] = None, opt_template=None):
-        """Elastic restore: :meth:`restore`, then every tensor moved to
-        ``device`` (the reference's ``device_put`` with a mesh's shardings;
-        the port has one device)."""
-        step, params, opt = self.restore(step, opt_template)
-        if params is None:
-            return None, None, None
-        params = {k: v.to(device) for k, v in params.items()}
-        if opt is not None:
-            opt = _tree_map(lambda x: x.to(device), opt)
-        return step, params, opt
+    def restore_sharded(self, target, step: Optional[int] = None, opt_template=None, *,
+                        shardings=None, opt_shardings=None):
+        """Elastic restore: :meth:`restore`'s tensors placed on ``target``.
+        ``target`` is a device, or a device mesh with ``shardings`` (a
+        NamedSharding per parameter, ``param_shardings``) and
+        ``opt_shardings`` (the tree of ``spec_tree_shardings``): each tensor
+        becomes a DTensor laid out by them, on a mesh of any shape (the
+        reference's ``device_put``). The optimizer's step counter stays a
+        plain tensor on the mesh's device. On a mesh every rank calls it."""
+        if shardings is None:
+            return self._restore(step, opt_template, torch.device(target), {})
+        dev = torch.device(target.device_type)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        placed_by = {f"params/{k}": sh for k, sh in shardings.items()}
+        if opt_shardings is not None:
+            placed_by.update({_opt_key(p): sh for p, sh in _leaves_with_path(opt_shardings)
+                              if p != ("step",)})
+        return self._restore(step, opt_template, dev, placed_by)

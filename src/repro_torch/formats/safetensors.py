@@ -1,4 +1,5 @@
-# Port copy of src/repro/formats/safetensors.py: host-only, logic unchanged.
+# Port copy of src/repro/formats/safetensors.py: host-only, logic unchanged;
+# ``save_stream`` added (``save_file`` writes through it).
 """Dependency-free safetensors reader/writer.
 
 Implements the safetensors on-disk format (https://github.com/huggingface/safetensors):
@@ -23,11 +24,12 @@ this container) with two additions the paper calls for in §6:
 from __future__ import annotations
 
 import json
+import math
 import mmap
 import os
 import struct
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -37,6 +39,7 @@ __all__ = [
     "TensorInfo",
     "SafetensorsFile",
     "save_file",
+    "save_stream",
     "load_file",
     "read_header",
     "read_header_blob",
@@ -135,23 +138,42 @@ def save_file(
     Tensors are written in *insertion order* and that order is recorded in
     ``__metadata__["tensor_order"]`` (§6 of the paper: order-preserving headers).
     """
-    header: Dict[str, object] = {}
+    entries: List[Tuple[str, str, Tuple[int, ...]]] = []
     payloads: List[np.ndarray] = []
-    offset = 0
-    order: List[str] = []
     for name, arr in tensors.items():
         if dtype_tags and name in dtype_tags:
             tag = dtype_tags[name]
             buf = np.ascontiguousarray(arr).view(STR_TO_DTYPE[tag])
         else:
             tag, buf = _normalize_array(np.asarray(arr))
-        nbytes = buf.nbytes
+        entries.append((name, tag, np.asarray(arr).shape))
+        payloads.append(buf)
+    save_stream(entries, payloads, path, metadata)
+
+
+def save_stream(
+    entries: Sequence[Tuple[str, str, Sequence[int]]],
+    payloads: Iterable[np.ndarray],
+    path: str | os.PathLike,
+    metadata: Optional[Mapping[str, str]] = None,
+) -> None:
+    """Write a safetensors file whose payloads arrive one at a time.
+
+    ``entries`` gives every tensor's (name, dtype tag, shape) up front, for the
+    header; ``payloads`` then yields the tensors' arrays in that order, each
+    written before the next is drawn, so the caller never holds more than one
+    (a checkpoint gathered tensor by tensor). Bytes are :func:`save_file`'s.
+    """
+    header: Dict[str, object] = {}
+    offset = 0
+    order: List[str] = []
+    for name, tag, shape in entries:
+        nbytes = ITEMSIZE[tag] * math.prod(shape)
         header[name] = {
             "dtype": tag,
-            "shape": list(np.asarray(arr).shape),
+            "shape": [int(s) for s in shape],
             "data_offsets": [offset, offset + nbytes],
         }
-        payloads.append(buf)
         order.append(name)
         offset += nbytes
 
@@ -165,13 +187,27 @@ def save_file(
     hjson += b" " * pad
 
     tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        f.write(struct.pack(_HEADER_LEN_FMT, len(hjson)))
-        f.write(hjson)
-        for buf in payloads:
-            f.write(buf.tobytes())
-        f.flush()
-        os.fsync(f.fileno())
+    try:
+        with open(tmp, "wb") as f:
+            f.write(struct.pack(_HEADER_LEN_FMT, len(hjson)))
+            f.write(hjson)
+            it = iter(payloads)
+            for name, _, _ in entries:
+                buf = next(it, None)
+                if buf is None:
+                    raise ValueError(f"no payload for {name}")
+                lo, hi = header[name]["data_offsets"]
+                buf = np.ascontiguousarray(buf)
+                if buf.nbytes != hi - lo:
+                    raise ValueError(f"{name}: payload of {buf.nbytes} bytes, "
+                                     f"header says {hi - lo}")
+                f.write(buf.reshape(-1).view(np.uint8))
+                del buf  # before the next payload is drawn
+            f.flush()
+            os.fsync(f.fileno())
+    except BaseException:
+        os.remove(tmp)
+        raise
     os.replace(tmp, path)  # atomic commit
 
 

@@ -5,12 +5,19 @@
         --steps 50 --seq 128 --global-batch 8 \\
         [--store /path/to/run-store] [--fail-at 25] [--device cuda]
 
-Runs the fault-tolerant trainer on one device: the card by default, the CPU
-with ``--device cpu``; without a card and without ``--device cpu`` it exits
+Runs the fault-tolerant trainer on the card by default, on the CPU with
+``--device cpu``; without a card and without ``--device cpu`` it exits
 non-zero. ``--smoke`` selects the reduced config of the same family; full
 configs are for the card. Checkpoints go through the port's zLLM store when
-``--store`` is given; its kernels run on the same device. ``--mesh`` takes
-only a one-device shape (``1,1``): the device mesh waits for the launch slice.
+``--store`` is given; its kernels run on the same device.
+
+``--mesh d,m`` (or ``p,d,m``) trains on that device mesh: one process per
+mesh device (``torch.multiprocessing``, spawned), joined by a ``FileStore``
+in the run directory, NCCL across cards or gloo with ``--device cpu``. On the
+card it needs as many visible cards as ranks (NCCL puts one rank on one card)
+and refuses more. Rank 0 prints and alone writes checkpoints and the store's
+index; the launcher exits with the first non-zero exit code of its ranks.
+Without ``--mesh`` it trains on one device with no process group.
 
 Without ``--run-dir`` each run writes into a fresh directory under the
 temporary directory (``TMPDIR``) and prints its path; a run resumes only from
@@ -31,8 +38,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import sys
 import tempfile
+
+import torch
+import torch.multiprocessing as mp
 
 
 def main(argv=None):
@@ -49,7 +61,8 @@ def main(argv=None):
     ap.add_argument("--run-dir", default=None,
                     help="checkpoints and manifest (default: a fresh temporary directory)")
     ap.add_argument("--store", default=None, help="zLLM store root for checkpoints")
-    ap.add_argument("--mesh", default=None, help="data,model (one device: 1,1)")
+    ap.add_argument("--mesh", default=None,
+                    help="data,model or pod,data,model: one process per mesh device")
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--remat", default="nothing", choices=["nothing", "dots", "none"])
     ap.add_argument("--grad-dtype", default="float32", choices=["float32", "bfloat16"])
@@ -58,8 +71,55 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    import torch
+    from repro_torch.train.trainer import train_device
 
+    device = train_device(args.device)
+    args.run_dir = args.run_dir or tempfile.mkdtemp(prefix="repro-train-run-")
+    mesh_shape = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
+    world = math.prod(mesh_shape) if mesh_shape else 1
+    if world == 1:
+        return _run(args, mesh_shape, 0)
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        print(f"[train] --mesh {args.mesh} needs {world} cards, one per rank; "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        sys.exit(2)
+    os.makedirs(args.run_dir, exist_ok=True)
+    rendezvous = os.path.join(args.run_dir, f"rendezvous-{os.getpid()}")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(args, mesh_shape, rank, world, rendezvous))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join()
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    codes = [p.exitcode for p in procs]
+    bad = [c for c in codes if c != 0]
+    if bad:
+        sys.exit(bad[0] if bad[0] > 0 else 1)
+
+
+def _rank_main(args, mesh_shape, rank: int, world: int, rendezvous: str) -> None:
+    """One rank of a mesh run: its process group, then the run."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import mesh_backend
+
+    if args.device.startswith("cuda"):
+        torch.cuda.set_device(rank)
+    else:  # the host's cores shared among the ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(mesh_backend(torch.device(args.device).type),
+                            store=dist.FileStore(rendezvous, world), rank=rank,
+                            world_size=world)
+    try:
+        _run(args, mesh_shape, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, mesh_shape, rank: int) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.bitx import TorchBackend
     from repro_torch.core.pipeline import ZLLMStore
@@ -68,9 +128,9 @@ def main(argv=None):
                                            TrainConfig, Trainer, train_device)
 
     device = train_device(args.device)
-    run_dir = args.run_dir or tempfile.mkdtemp(prefix="repro-train-run-")
+    run_dir = args.run_dir
     arch = get_config(args.arch, smoke=args.smoke)
-    mesh_shape = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
+    say = print if rank == 0 else (lambda *a, **k: None)
     store = None
     if args.store:
         store = ZLLMStore(args.store, backend=TorchBackend(device=device.type))
@@ -87,39 +147,41 @@ def main(argv=None):
         device=device.type,
     )
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
-    print(f"[train] device {device} ({name}), arch {arch.name}, run dir {run_dir}")
+    mesh = f", mesh {','.join(map(str, mesh_shape))}" if mesh_shape else ""
+    say(f"[train] device {device} ({name}){mesh}, arch {arch.name}, run dir {run_dir}")
     summary = None
     try:
         trainer = Trainer(cfg, store=store, run_id=f"{arch.name}-run",
                           failure=FailureInjector(fail_at_step=args.fail_at))
         if trainer.resumed_from is not None:
-            print(f"[train] resumed from step {trainer.resumed_from}")
+            say(f"[train] resumed from step {trainer.resumed_from}")
             # this run is the restart after the injected crash: it runs to the end
             trainer.failure = FailureInjector()
         try:
             hist = trainer.run()
         except SimulatedFailure as e:
-            print(f"[train] {e} — restart with --run-dir {run_dir} to resume")
+            say(f"[train] {e} — restart with --run-dir {run_dir} to resume")
             sys.exit(42)
     finally:
         if store is not None:
-            store.save_index()
+            if rank == 0:  # only rank 0 ingests; the others read
+                store.save_index()
             for r in store.results:
-                print(f"[train] checkpoint {r.filename}: base {r.base_id or '-'} "
+                say(f"[train] checkpoint {r.filename}: base {r.base_id or '-'} "
                       f"({r.base_source or 'none'}), {r.n_bitx} BitX / {r.n_zipnn} ZipNN / "
                       f"{r.n_dedup} dedup / {r.n_raw} raw of {r.n_tensors} tensors, "
                       f"{r.stored_bytes}/{r.raw_bytes} B")
             summary = store.summary()
             store.close()
     for h in hist[:: max(1, len(hist) // 10)]:
-        print(f"[train] step {h['step']:>6} loss {h['loss']:.4f} "
+        say(f"[train] step {h['step']:>6} loss {h['loss']:.4f} "
               f"gnorm {h['grad_norm']:.3f} {h['sec']*1e3:.0f} ms")
     if hist:
-        print(f"[train] done: {len(hist)} steps, final loss {hist[-1]['loss']:.4f}")
+        say(f"[train] done: {len(hist)} steps, final loss {hist[-1]['loss']:.4f}")
     else:
-        print(f"[train] done: 0 steps (step {cfg.steps} was already reached)")
+        say(f"[train] done: 0 steps (step {cfg.steps} was already reached)")
     if summary is not None:
-        print(f"[train] store: {json.dumps(summary)}")
+        say(f"[train] store: {json.dumps(summary)}")
 
 
 if __name__ == "__main__":

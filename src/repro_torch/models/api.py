@@ -5,8 +5,10 @@ decode caches, input specs and real synthetic batches; plus
 parameters into torch tensors.
 
 Draws come from an explicit :class:`torch.Generator` on an explicit device.
-The ``abstract_*`` stand-ins and the ``*_shardings`` helpers of the reference
-build JAX objects for a mesh and wait for the mesh slice.
+For a device mesh: ``abstract_*`` give meta tensors (the reference's
+ShapeDtypeStructs), the ``*_shardings`` helpers give each tensor's
+:class:`~repro_torch.sharding.rules.NamedSharding`, and :func:`distribute`
+lays a dict of whole tensors out by them (the reference's ``device_put``).
 """
 
 from __future__ import annotations
@@ -17,29 +19,44 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
-from repro_torch.sharding.rules import ParamSpec
+from repro_torch.sharding.rules import NamedSharding, ParamSpec, ShardingRules
 
 __all__ = [
     "get_model",
     "init_params",
+    "abstract_params",
+    "param_shardings",
     "init_cache",
+    "abstract_cache",
+    "cache_shardings",
     "input_templates",
+    "abstract_inputs",
+    "input_shardings",
+    "distribute",
     "make_batch",
     "params_from_reference",
 ]
 
 
-def get_model(cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing"):
+def get_model(cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing", *,
+              mesh=None, rules: Optional[ShardingRules] = None):
     """The model of ``cfg``'s family. ``attn`` picks the full-sequence
     attention of the models that attend: the CUDA kernel (``"flash"``, the
     default) or the plain PyTorch version (``"plain"``); ``MambaLM`` has no
     attention and ignores it. ``remat_policy`` (``"nothing"``, ``"dots"`` or
     ``"none"``, the reference's) sets what the backward pass of ``loss``
-    recomputes."""
+    recomputes. With ``mesh`` and ``rules`` the model runs on DTensors laid
+    out by the rules (the transformer family; the SSM and Whisper families
+    on a mesh are not ported yet)."""
     from repro_torch.models.ssm import MambaLM, Zamba2LM
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.models.whisper import WhisperModel
 
+    if mesh is not None and cfg.family in ("encdec", "ssm", "hybrid"):
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) on a device mesh waits for the "
+                                  "next slice of the port; the transformer family runs on one")
+    if mesh is not None:
+        return TransformerLM(cfg, attn, remat_policy, mesh=mesh, rules=rules)
     if cfg.family == "encdec":
         return WhisperModel(cfg, attn, remat_policy)
     if cfg.family == "ssm":
@@ -66,14 +83,42 @@ def _init_one(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+                device: Optional[torch.device] = None,
+                shardings: Optional[Dict[str, NamedSharding]] = None) -> Dict[str, torch.Tensor]:
     """Random parameters of ``cfg``, drawn in name order from ``generator`` on
     ``device`` (default: the generator's device). The draws differ from the
     reference's ``jax.random`` keys; the recipe (normal 0.02, scaled output
-    projections, ones, zeros) is the same."""
+    projections, ones, zeros) is the same. With ``shardings``
+    (``param_shardings``) each tensor is distributed as soon as it is drawn,
+    so a rank holds its shards and one whole tensor at most; the values are
+    the same on any mesh."""
     device = torch.device(device) if device is not None else generator.device
     templates = get_model(cfg).param_templates()
-    return {name: _init_one(generator, spec, device) for name, spec in sorted(templates.items())}
+    out = {}
+    for name, spec in sorted(templates.items()):
+        x = _init_one(generator, spec, device)
+        out[name] = x if shardings is None else shardings[name].distribute(x)
+    return out
+
+
+def abstract_params(cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """Every parameter as a meta tensor: shapes and dtypes, no storage."""
+    return {name: spec.sds for name, spec in get_model(cfg).param_templates().items()}
+
+
+def param_shardings(cfg: ArchConfig, mesh, rules: ShardingRules) -> Dict[str, NamedSharding]:
+    return {name: spec.sharding(mesh, rules)
+            for name, spec in get_model(cfg).param_templates().items()}
+
+
+def distribute(tree, shardings):
+    """A tree (dicts) of whole tensors, alike on every rank, as DTensors laid
+    out by the matching tree of :class:`NamedSharding` (the reference's
+    ``device_put(v, sh)``); each rank keeps its own pieces and nothing is
+    sent. Leaves must already lie on the mesh's device type (or on ``meta``)."""
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    return shardings.distribute(tree)
 
 
 def params_from_reference(flat: Mapping[str, np.ndarray],
@@ -110,6 +155,16 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, device) -> Dict:
     return out
 
 
+def abstract_cache(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, torch.Tensor]:
+    return {k: v.sds for k, v in get_model(cfg).cache_templates(batch, seq).items()}
+
+
+def cache_shardings(cfg: ArchConfig, batch: int, seq: int, mesh,
+                    rules: ShardingRules) -> Dict[str, NamedSharding]:
+    return {k: v.sharding(mesh, rules)
+            for k, v in get_model(cfg).cache_templates(batch, seq).items()}
+
+
 # ---------------------------------------------------------------------------
 # Model inputs per shape cell
 # ---------------------------------------------------------------------------
@@ -140,6 +195,15 @@ def input_templates(cfg: ArchConfig, cell: ShapeCell) -> Dict[str, ParamSpec]:
                                           ("batch", None, None))
             t["positions3"] = ParamSpec((B, 3, S), "int32", ("batch", None, None))
     return t
+
+
+def abstract_inputs(cfg: ArchConfig, cell: ShapeCell) -> Dict[str, torch.Tensor]:
+    return {k: v.sds for k, v in input_templates(cfg, cell).items()}
+
+
+def input_shardings(cfg: ArchConfig, cell: ShapeCell, mesh,
+                    rules: ShardingRules) -> Dict[str, NamedSharding]:
+    return {k: v.sharding(mesh, rules) for k, v in input_templates(cfg, cell).items()}
 
 
 def make_batch(cfg: ArchConfig, cell: ShapeCell, generator: torch.Generator,

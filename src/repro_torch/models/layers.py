@@ -9,23 +9,44 @@ dispatch, a chunked cross-entropy that never holds the full (B, S, V) logits,
 and :func:`remat`, the reference's rematerialization policies
 (``jax.checkpoint``) as ``torch.utils.checkpoint``.
 
-What is not here: ``decode_attention_sp`` (``layers.py:247-308``), a
-``shard_map`` over a sequence-sharded cache, waits for the mesh slice; on one
-card the decode path uses :func:`attention` with ``q_offset``, as the
-reference's single-device branch does. The sharding constraints (``ws``) are
-dropped. The chunked branch of :func:`attention` computes the reference's
-function without its chunk-divisibility assert (a ragged last chunk is fine).
+On a device mesh (DTensor operands): :func:`decode_attention_sp` is the
+reference's flash-decoding ``shard_map`` as a ``local_map`` over a
+sequence-sharded cache, and :func:`moe_block` dispatches one group per data
+shard inside a ``local_map``; the reference's ``ws`` constraint is the model's
+``redistribute``. The chunked branch of :func:`attention` computes the
+reference's function without its chunk-divisibility assert (a ragged last
+chunk is fine). :func:`layer_range` is the models' layer loop (the
+reference's ``lax.scan``): it publishes the layer index in :data:`LAYER`.
 """
 
 from __future__ import annotations
 
+import contextvars
 import functools
-from typing import Callable, Optional, Tuple
+import math
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from repro_torch.sharding.rules import PartitionSpec, is_dtensor, spec_placements
+
+# the index of the layer whose body the model's layer loop is running, else
+# None; ``repro_torch.launch.op_cost`` charges each op to it
+LAYER: contextvars.ContextVar = contextvars.ContextVar("layer", default=None)
+
+
+def layer_range(n: int) -> Iterator[int]:
+    """``range(n)`` for a model's loop over its layers: :data:`LAYER` holds
+    the index while each layer's body runs, and None once the loop ends."""
+    try:
+        for i in range(n):
+            LAYER.set(i)
+            yield i
+    finally:
+        LAYER.set(None)
 
 __all__ = [
     "rms_norm",
@@ -35,6 +56,8 @@ __all__ = [
     "apply_mrope",
     "repeat_kv",
     "attention",
+    "decode_attention_sp",
+    "redistribute",
     "swiglu",
     "gelu_mlp",
     "moe_block",
@@ -168,7 +191,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
     ang = positions3.float()[..., None] * _inv_freq(d, theta, x.device)          # (3, B, S, half)
     sel = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                  torch.tensor(sections, device=x.device))       # (half,)
+                                  torch.tensor(sections, device=x.device),
+                                  output_size=half)                              # (half,)
     # each frequency takes its angle from the stream its section belongs to
     ang = torch.gather(ang, 0, sel.expand(1, *ang.shape[1:3], half)).squeeze(0)  # (B, S, half)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
@@ -265,6 +289,103 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
 
 
 # ---------------------------------------------------------------------------
+# Layouts on a device mesh
+# ---------------------------------------------------------------------------
+
+
+class _Layout(torch.autograd.Function):
+    """``x`` laid out as ``placements``, and its gradient laid out so too
+    before it goes back (JAX's ``with_sharding_constraint`` constrains the
+    cotangent as well)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.before = x.placements
+        ctx.after = tuple(placements)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Partial
+
+        mesh = grad.device_mesh
+        grad = grad.redistribute(mesh, ctx.after)   # a partial gradient is reduced here
+        # a partial sum's gradient is the whole gradient on every rank (the
+        # transpose of an all-reduce is the identity)
+        back = [a if isinstance(b, Partial) else b for a, b in zip(ctx.after, ctx.before)]
+        return grad.redistribute(mesh, back), None
+
+
+def redistribute(x, mesh, placements):
+    """DTensor ``x`` laid out as ``placements``, its gradient too. DTensor's
+    own ``redistribute`` lets a gradient come back as a partial sum, and the
+    matmul backward that receives one then gathers its weight to keep it so."""
+    if tuple(x.placements) == tuple(placements) and not torch.is_grad_enabled():
+        return x
+    return _Layout.apply(x, tuple(placements))
+
+
+# ---------------------------------------------------------------------------
+# Decode attention: flash-decoding over a sequence-sharded KV cache
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_sp(q, k_cache, v_cache, cache_len: int, *, mesh, sp_axis: str = "model",
+                        batch_axes=None, window: int = 0):
+    """One-token attention over a cache whose sequence dim is sharded
+    (``layers.py:247-308``).
+
+    q: (B, H, D) DTensor, replicated over ``sp_axis``; k_cache/v_cache:
+    (B, S, Kv, D) DTensors laid out as ``(batch_axes[0], sp_axis, None,
+    None)``; cache_len: the number of valid cache entries (positions >=
+    cache_len are masked; with ``window`` > 0 positions <= cache_len - window
+    are also masked). Inputs in another layout are redistributed to these.
+
+    Flash-decoding on the mesh: each rank of ``sp_axis`` computes a partial
+    online softmax over its local sequence chunk (global positions
+    ``rank * chunk + arange(chunk)``), then the partials merge with one
+    all-reduce max and two all-reduce sums of (B, H·D)-sized tensors over that
+    axis: bytes moved are O(B·H·D), never a cache all-gather.
+    """
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor.experimental import local_map
+
+    B, H, D = q.shape
+    Kv = k_cache.shape[2]
+    G = H // Kv
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(D))))
+    bentry = tuple(batch_axes)[0] if batch_axes is not None else None
+    sp_dim = mesh.mesh_dim_names.index(sp_axis)
+    group = (mesh, sp_dim)
+
+    def local(q, kc, vc):
+        # every shape here is a local shard's
+        B, chunk = kc.shape[0], kc.shape[1]
+        pos = mesh.get_local_rank(sp_dim) * chunk + torch.arange(chunk, device=kc.device)
+        qg = q.reshape(B, Kv, G, D)
+        s = torch.einsum("bkgd,bskd->bkgs", qg.float(), kc.float()) * scale
+        valid = pos < cache_len
+        if window:
+            valid &= pos > cache_len - window
+        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+        m = s.amax(dim=-1)                                   # (B, Kv, G)
+        p = torch.exp(s - m[..., None])
+        l = p.sum(dim=-1)
+        o = torch.einsum("bkgs,bskd->bkgd", p.to(vc.dtype).float(), vc.float())
+        m_g = funcol.wait_tensor(funcol.all_reduce(m, "max", group))
+        corr = torch.exp(m - m_g)
+        l_g = funcol.wait_tensor(funcol.all_reduce(l * corr, "sum", group))
+        o_g = funcol.wait_tensor(funcol.all_reduce(o * corr[..., None], "sum", group))
+        out = o_g / torch.clamp(l_g, min=1e-30)[..., None]
+        return out.reshape(B, H, D).to(q.dtype)
+
+    q_pl = spec_placements(mesh, PartitionSpec(bentry, None, None))
+    c_pl = spec_placements(mesh, PartitionSpec(bentry, sp_axis, None, None))
+    return local_map(local, out_placements=list(q_pl), in_placements=(q_pl, c_pl, c_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -290,18 +411,10 @@ def gelu_mlp(x, w_in, b_in, w_out, b_out):
 # ---------------------------------------------------------------------------
 
 
-def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-              w_down: torch.Tensor, *, top_k: int = 2, capacity_factor: float = 1.25,
-              n_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token-dropping top-k MoE with group-local scatter dispatch (``layers.py:336``).
-
-    x: (B, S, d); router_w: (d, E); expert weights: (E, d, f) / (E, f, d).
-    Returns (output (B, S, d), aux load-balancing loss scalar). The T tokens
-    split into G = ``n_groups`` groups of T/G (one group when G does not divide
-    T), one per data-parallel shard in the reference; each group dispatches
-    into its own (E, C, d) buffer, C = max(1, (T/G)·k·cf / E) slots per expert
-    filled in token order, and drops the rest.
-    """
+def _moe_groups(x, router_w, w_gate, w_up, w_down, top_k: int, capacity_factor: float,
+                n_groups: int):
+    """The group-local dispatch of :func:`moe_block`: (output, mean router
+    probability per expert, share of first choices per expert)."""
     B, S, d = x.shape
     E = router_w.shape[-1]
     T = B * S
@@ -313,10 +426,8 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_u
     gate_w, expert_idx = torch.topk(probs, top_k, dim=-1)                # (G, Tg, k)
     gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
 
-    # Switch-style aux loss: E * sum_e (fraction routed to e) * (mean prob e)
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * (me * ce).sum()
 
     cap = int(max(1, (Tg * top_k * capacity_factor) / E))
     flat_e = expert_idx.reshape(G, Tg * top_k)
@@ -339,7 +450,75 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_u
     gathered = yb[g_idx, e_safe, s_safe]                                 # (G, Tg·k, d)
     wk = gate_w.reshape(G, Tg * top_k)
     gathered = torch.where(keep[..., None], gathered, 0) * wk[..., None].to(x.dtype)
-    return gathered.reshape(G, Tg, top_k, d).sum(dim=2).reshape(B, S, d), aux
+    return gathered.reshape(G, Tg, top_k, d).sum(dim=2).reshape(B, S, d), me, ce
+
+
+def _moe_mesh(x, router_w, w_gate, w_up, w_down, top_k, capacity_factor, n_groups):
+    """:func:`moe_block` on DTensors: each rank dispatches its own tokens
+    (batch-sharded ``x``, replicated elsewhere) to its own slice of the
+    experts' d_ff (the weights' FSDP dims gathered by the caller). A data
+    shard's tokens are whole groups, so the groups are the reference's.
+
+    On the mesh dims that cut d_ff each rank's output, and its gradients of
+    ``x`` and the router, are partial sums; on the batch dims the weights'
+    gradients are. The router statistics are returned as partial sums over
+    both kinds of dim, each rank's share scaled down by their count, so the
+    aux loss and its gradient count every rank once."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    # whole values: a Partial x (a norm's output can stay a partial sum) is reduced
+    x = x.redistribute(mesh, [Shard(0) if p == Shard(0) else Replicate() for p in x.placements])
+    batch = [p == Shard(0) for p in x.placements]
+    cut = [any(isinstance(w.placements[i], Shard) for w in (w_gate, w_up, w_down))
+           for i in range(mesh.ndim)]
+    split = math.prod(mesh.size(i) for i in range(mesh.ndim) if batch[i])
+    share = split * math.prod(mesh.size(i) for i in range(mesh.ndim) if cut[i] and not batch[i])
+    local_groups = n_groups // split if n_groups % split == 0 else 1
+
+    def placed(own, on_batch, on_cut):
+        return tuple(on_batch if batch[i] else on_cut if cut[i] else own[i]
+                     for i in range(mesh.ndim))
+
+    rep = [Replicate()] * mesh.ndim
+    out_pl = placed(rep, Shard(0), Partial())      # also x's gradient
+    stat_pl = placed(rep, Partial(), Partial())    # also the router's gradient
+    w_grad = [tuple(Partial() if batch[i] else w.placements[i] for i in range(mesh.ndim))
+              for w in (w_gate, w_up, w_down)]
+
+    def local(x, router_w, w_gate, w_up, w_down):
+        out, me, ce = _moe_groups(x, router_w, w_gate, w_up, w_down, top_k, capacity_factor,
+                                  local_groups)
+        return out, me / share, ce / share
+
+    return local_map(local, out_placements=(out_pl, stat_pl, stat_pl),
+                     in_grad_placements=(out_pl, stat_pl, *w_grad),
+                     device_mesh=mesh)(x, router_w, w_gate, w_up, w_down)
+
+
+def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor, *, top_k: int = 2, capacity_factor: float = 1.25,
+              n_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-dropping top-k MoE with group-local scatter dispatch (``layers.py:336``).
+
+    x: (B, S, d); router_w: (d, E); expert weights: (E, d, f) / (E, f, d).
+    Returns (output (B, S, d), aux load-balancing loss scalar). The T tokens
+    split into G = ``n_groups`` groups of T/G (one group when G does not divide
+    T), one per data-parallel shard; each group dispatches into its own
+    (E, C, d) buffer, C = max(1, (T/G)·k·cf / E) slots per expert filled in
+    token order, and drops the rest. On DTensors (a mesh) each data shard
+    dispatches its own groups locally (:func:`_moe_mesh`).
+    """
+    E = router_w.shape[-1]
+    if is_dtensor(x):
+        out, me, ce = _moe_mesh(x, router_w, w_gate, w_up, w_down, top_k, capacity_factor,
+                                n_groups)
+    else:
+        out, me, ce = _moe_groups(x, router_w, w_gate, w_up, w_down, top_k, capacity_factor,
+                                  n_groups)
+    # Switch-style aux loss: E * sum_e (fraction routed to e) * (mean prob e)
+    return out, E * (me * ce).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +530,18 @@ def _ce_chunk(hb: torch.Tensor, w_vocab: torch.Tensor, lb: torch.Tensor):
     """(summed CE, valid count) of one sequence chunk, in float32."""
     logits = hb.float() @ w_vocab.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lb.clamp(min=0).long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        # vocab-sharded logits: each rank picks the gold logit from its own
+        # slice (zero elsewhere) and the sum over the vocabulary adds them
+        # exactly; DTensor's rule for a gather on the sharded dim fails
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        vocab = distribute_tensor(torch.arange(logits.shape[-1], device=lb.device),
+                                  logits.device_mesh, [Replicate()] * logits.device_mesh.ndim,
+                                  src_data_rank=None)
+        gold = torch.where(vocab == lb.clamp(min=0).long()[..., None], logits, 0.0).sum(dim=-1)
+    else:
+        gold = torch.gather(logits, -1, lb.clamp(min=0).long()[..., None])[..., 0]
     valid = (lb >= 0).float()
     return ((lse - gold) * valid).sum(), valid.sum()
 

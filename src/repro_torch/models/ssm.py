@@ -200,7 +200,7 @@ class MambaLM:
         h = params["embed"][batch["tokens"].long()]
         stacked = stacked_params(params)
         layer = L.remat(lambda h, p: self._block_full(h, p)[0], self.remat_policy)
-        for i in range(self.cfg.n_layers):
+        for i in L.layer_range(self.cfg.n_layers):
             h = layer(h, layer_params(stacked, i))
         h = L.rms_norm(h, params["final_norm"])
         return L.chunked_cross_entropy(h, params["lm_head"], batch["labels"])
@@ -213,7 +213,7 @@ class MambaLM:
         h = params["embed"][batch["tokens"].long()]
         stacked = stacked_params(params)
         hs, tails = [], []
-        for i in range(self.cfg.n_layers):
+        for i in L.layer_range(self.cfg.n_layers):
             h, (hN, tail) = self._block_full(h, layer_params(stacked, i))
             hs.append(hN)
             tails.append(tail)
@@ -227,7 +227,7 @@ class MambaLM:
         h = params["embed"][batch["tokens"].long()]           # (B,1,d)
         stacked = stacked_params(params)
         hs, tails = [], []
-        for i in range(self.cfg.n_layers):
+        for i in L.layer_range(self.cfg.n_layers):
             p = layer_params(stacked, i)
             x = L.rms_norm(h, p["norm"])
             xi, z = (x @ p["in_proj"])[:, 0].chunk(2, dim=-1)  # (B, DI)

@@ -142,7 +142,7 @@ class WhisperModel:
             return self._mlp(h, p)
 
         layer = L.remat(layer, self.remat_policy)
-        for i in range(self.cfg.n_layers):
+        for i in L.layer_range(self.cfg.n_layers):
             h = layer(h, layer_params(stacked, i))
         return L.layer_norm(h, params["enc_final_norm"], params["enc_final_bias"])
 
@@ -162,7 +162,7 @@ class WhisperModel:
 
         layer = L.remat(layer, self.remat_policy)
         caches = ([], [], [], [])
-        for i in range(self.cfg.n_layers):
+        for i in L.layer_range(self.cfg.n_layers):
             h, kv = layer(h, layer_params(stacked, i))
             for lst, t in zip(caches, kv):
                 lst.append(t)
@@ -199,7 +199,7 @@ class WhisperModel:
         h = params["embed"][batch["tokens"].long()]
         h = h + sinusoid_positions(1, c.d_model, offset=t, device=h.device).to(h.dtype)[None]
         stacked = stacked_params(params, "dec.")
-        for i in range(c.n_layers):
+        for i in L.layer_range(c.n_layers):
             p = layer_params(stacked, i)
             skc, svc = cache["self_k"][i], cache["self_v"][i]
             ckc, cvc = cache["cross_k"][i], cache["cross_v"][i]

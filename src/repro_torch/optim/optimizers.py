@@ -17,6 +17,11 @@ float32 on the device, correctly rounded; PyTorch's float32 ``pow`` and
 ``cos`` are not. The moment arithmetic is the reference's, op for op, in
 float32. Trees are flat dicts (the moments nested one level), walked in
 sorted key order as ``jax.tree_util`` walks them.
+
+On a device mesh the parameters, gradients and moments are DTensors, each
+moment placed by ``spec_tree_shardings`` of ``state_templates`` (AdamW's like
+its parameter); the updates run in place on each rank's own pieces, and the
+global norm's sum of squares is reduced over the whole mesh.
 """
 
 from __future__ import annotations
@@ -88,6 +93,23 @@ def _step_tensor(state) -> tuple:
     return int(step), step
 
 
+def _zeros_of(params, shardings):
+    """``z(part, name, shape, like=None)``: float32 zeros of one state leaf.
+    With ``shardings`` it is a DTensor laid out by ``shardings[part][name]``,
+    of which each rank makes only its own piece; without, ``zeros_like(like)``
+    where the leaf has its parameter's shape (a DTensor parameter gives a
+    DTensor laid out like it), else plain zeros on the parameters' device."""
+    dev = next(iter(params.values())).device if params else None
+
+    def z(part, name, shape, like=None):
+        if shardings is not None:
+            return shardings[part][name].zeros(shape, torch.float32)
+        if like is not None:
+            return torch.zeros_like(like, dtype=torch.float32)
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    return z
+
+
 def _apply(p: torch.Tensor, delta: torch.Tensor, lr: float) -> None:
     """p <- p - lr * delta in float32, rounded once to p's dtype, in place."""
     if p.dtype == torch.float32:
@@ -107,12 +129,15 @@ class AdamW:
         self.cfg = cfg
         self.sched = warmup_cosine(cfg)
 
-    def init(self, params):
-        z = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def init(self, params, shardings=None):
+        """Zero moments beside ``params``. ``shardings`` (the tree of
+        ``spec_tree_shardings`` over :meth:`state_templates`) makes each moment
+        a DTensor laid out by it, built shard by shard on every rank."""
+        z = _zeros_of(params, shardings)
         dev = next(iter(params.values())).device if params else None
         return {
-            "m": {k: z(p) for k, p in params.items()},
-            "v": {k: z(p) for k, p in params.items()},
+            "m": {k: z("m", k, p.shape, p) for k, p in params.items()},
+            "v": {k: z("v", k, p.shape, p) for k, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=dev),
         }
 
@@ -156,17 +181,19 @@ class Adafactor:
         return len(shape) >= 2 and shape[-1] >= self.cfg.factored_min_dim \
             and shape[-2] >= self.cfg.factored_min_dim
 
-    def init(self, params):
+    def init(self, params, shardings=None):
+        """Zero second moments beside ``params``; ``shardings`` as in
+        :meth:`AdamW.init`."""
+        z = _zeros_of(params, shardings)
         dev = next(iter(params.values())).device if params else None
         state = {"step": torch.zeros((), dtype=torch.int32, device=dev), "vr": {}, "vc": {},
                  "v": {}}
         for k, p in params.items():
-            z = lambda shape: torch.zeros(shape, dtype=torch.float32, device=p.device)
             if self._factored(p.shape):
-                state["vr"][k] = z(p.shape[:-1])
-                state["vc"][k] = z(p.shape[:-2] + p.shape[-1:])
+                state["vr"][k] = z("vr", k, p.shape[:-1])
+                state["vc"][k] = z("vc", k, p.shape[:-2] + p.shape[-1:])
             else:
-                state["v"][k] = z(p.shape)
+                state["v"][k] = z("v", k, p.shape, p)
         return state
 
     def state_templates(self, templates: Dict[str, ParamSpec]) -> Dict[str, Dict]:

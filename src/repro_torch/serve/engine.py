@@ -14,6 +14,12 @@ the checkpoint from the port's zLLM store (the BitX decode runs on the store's
 backend, the card by default), verify its content hash, parse the safetensors
 bytes in memory and move the parameters to the device. The engine runs on the
 card unless it is given ``device="cpu"``.
+
+With a device mesh (``mesh`` and ``rules``; the transformer family) the
+parameters are laid out by ``param_shardings``, each prompt batch by the
+batch axes, the cache by ``cache_shardings`` (sequence-sharded, so decode
+runs flash-decoding over the model axis); the logits are gathered whole
+before each greedy pick, so every rank picks the same tokens.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.api import get_model
+from repro_torch.models.api import distribute, get_model, param_shardings
+from repro_torch.sharding.rules import named_sharding
 
 __all__ = ["ServeEngine", "RequestBatcher", "GenerateResult"]
 
@@ -62,29 +69,35 @@ def _tensor_from_bytes(data: bytes, start: int, end: int, dtype_str: str, np_dty
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: Dict[str, torch.Tensor], device="cuda",
-                 attn: str = "flash"):
+                 attn: str = "flash", *, mesh=None, rules=None):
         self.cfg = cfg
         self.device = _device(device)
-        self.model = get_model(cfg, attn=attn)
+        self.mesh, self.rules = mesh, rules
+        self.model = get_model(cfg, attn=attn, mesh=mesh, rules=rules)
         self.params = {k: v.to(self.device) for k, v in params.items()}
+        if mesh is not None:
+            self.params = distribute(self.params, param_shardings(cfg, mesh, rules))
         # the cache entries that grow during decode (the model names them) and
         # their sequence axis (tagged "sp" in the template). Whisper's cross
         # K/V carry "sp" too but stay the encoder's length, where the
         # reference's engine pads them
         tmpl = self.model.cache_templates(1, 8)
         self._grow_axes = {k: tmpl[k].axes.index("sp") for k in self.model.GROWING_CACHE}
+        self._cache_axes = {k: tmpl[k].axes for k in self.model.GROWING_CACHE}
 
     # ------------------------------------------------------------------
     @classmethod
     def from_store(cls, store, repo_id: str, filename: str, cfg: ArchConfig, device="cuda",
-                   param_prefix: str = "params/") -> "ServeEngine":
+                   param_prefix: str = "params/", *, mesh=None, rules=None) -> "ServeEngine":
         """Cold start from the compressed store: BitX-decode, verify, load.
 
         ``store.retrieve_file(..., verify=True)`` reconstructs the file
         bit-exactly (its BitX and ZipNN merges run on the store's backend) and
         checks its sha256 against the ingest-time hash. The bytes are parsed in
         memory with the port's safetensors header reader, with no spool file;
-        BF16-tagged tensors become ``torch.bfloat16`` with the same bits.
+        BF16-tagged tensors become ``torch.bfloat16`` with the same bits. With
+        ``mesh`` and ``rules`` each rank reads the file and keeps its own
+        pieces of every tensor (``param_shardings``).
         """
         from repro_torch.formats import safetensors as st
 
@@ -100,7 +113,7 @@ class ServeEngine:
                                    ti.np_view_dtype, ti.shape)
             params[ti.name[len(param_prefix):]] = t.to(dev)
         del data
-        return cls(cfg, params, dev)
+        return cls(cfg, params, dev, mesh=mesh, rules=rules)
 
     # ------------------------------------------------------------------
     def _pad_cache(self, cache: Dict, extra: int) -> Dict:
@@ -111,12 +124,32 @@ class ServeEngine:
         out = dict(cache)
         for k, ax in self._grow_axes.items():
             arr = cache[k]
+            if self.mesh is not None:
+                arr = arr.full_tensor()
             shape = list(arr.shape)
             shape[ax] += extra
             grown = torch.zeros(shape, dtype=arr.dtype, device=arr.device)
             grown.narrow(ax, 0, arr.shape[ax]).copy_(arr)
             out[k] = grown
+        if self.mesh is not None:
+            out.update({k: named_sharding(self.mesh, self._cache_axes[k], self.rules,
+                                          out[k].shape).distribute(out[k])
+                        for k in self._grow_axes})
         return out
+
+    def _place(self, x: torch.Tensor) -> torch.Tensor:
+        """An input batch tensor on the device; on a mesh split on its batch dim."""
+        x = x.to(self.device)
+        if self.mesh is None:
+            return x
+        return named_sharding(self.mesh, ("batch",) + (None,) * (x.dim() - 1), self.rules,
+                              x.shape).distribute(x)
+
+    def _pick(self, logits: torch.Tensor) -> torch.Tensor:
+        """Greedy tokens (B,) of a step's logits, gathered whole on a mesh."""
+        if self.mesh is not None:
+            logits = logits.full_tensor()
+        return logits.argmax(dim=-1).to(torch.int32)
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, n_new: int,
@@ -125,17 +158,18 @@ class ServeEngine:
         whisper's ``frames``) go into the prefill batch: a tensor as it is (a
         bf16 one too), anything else through numpy, moved to the device."""
         B, S = prompts.shape
-        batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32), device=self.device)}
+        batch = {"tokens": self._place(torch.as_tensor(np.asarray(prompts, np.int32)))}
         if extra_inputs:
-            batch.update({k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
-                          .to(self.device) for k, v in extra_inputs.items()})
+            batch.update({k: self._place(v if isinstance(v, torch.Tensor)
+                                         else torch.as_tensor(np.asarray(v)))
+                          for k, v in extra_inputs.items()})
         logits, cache = self.model.prefill(self.params, batch)
         cache = self._pad_cache(cache, n_new)
-        toks = [logits.argmax(dim=-1).to(torch.int32)]
+        toks = [self._pick(logits)]
         for _ in range(n_new - 1):
-            logits, cache = self.model.decode_step(self.params, {"tokens": toks[-1][:, None]},
-                                                   cache)
-            toks.append(logits.argmax(dim=-1).to(torch.int32))
+            logits, cache = self.model.decode_step(
+                self.params, {"tokens": self._place(toks[-1][:, None])}, cache)
+            toks.append(self._pick(logits))
         new = torch.stack(toks, dim=1).cpu().numpy()
         return GenerateResult(np.concatenate([prompts, new], axis=1), S, n_new)
 

@@ -16,6 +16,16 @@ Gradients come from ``torch.autograd.grad`` on detached leaves of the
 parameters, never from ``.grad``: autograd would accumulate a bf16
 parameter's ``.grad`` in bf16, where the reference accumulates in
 ``grad_dtype``. The optimizer then updates the parameters in place.
+
+On a device mesh (DTensor parameters and batch) each gradient is
+redistributed to its parameter's layout (a reduce-scatter of the data
+shards' partial sums for an FSDP-sharded weight), the accumulators are placed
+like their parameters, and microbatch ``i`` is the ``i``-th slice of every
+data shard's own rows, as each data-parallel replica accumulates its own
+microbatches: no row moves between ranks. With as many valid labels in every
+microbatch (always, for ``SyntheticTokens``) the mean loss and the summed
+gradients are the one-device step's; on a one-device mesh the split is the
+one-device split. The loss and the norm come back whole (``full_tensor``).
 """
 
 from __future__ import annotations
@@ -25,8 +35,21 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.optim.optimizers import clip_by_global_norm
+from repro_torch.sharding.rules import is_dtensor, whole
 
 __all__ = ["make_train_step", "make_eval_step"]
+
+
+def _microbatch(x: torch.Tensor, G: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``G`` along the first dim; of a DTensor, the
+    ``i``-th slice of each rank's own rows, laid out as ``x`` is."""
+    if not is_dtensor(x):
+        return x.reshape((G, x.shape[0] // G) + x.shape[1:])[i]
+    from torch.distributed.tensor import DTensor
+
+    loc = x.to_local()
+    loc = loc.reshape((G, loc.shape[0] // G) + loc.shape[1:])[i]
+    return DTensor.from_local(loc, x.device_mesh, x.placements, run_check=False)
 
 
 def make_train_step(
@@ -46,18 +69,18 @@ def make_train_step(
             leaves = {k: params[k].detach().requires_grad_(True) for k in names}
             loss = model.loss(leaves, mb)
             grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-        return loss.detach(), dict(zip(names, grads))
+        grads = {k: (g.redistribute(params[k].device_mesh, params[k].placements)
+                     if is_dtensor(g) else g) for k, g in zip(names, grads)}
+        return loss.detach(), grads
 
     def train_step(params, opt_state, batch):
         G = microbatches
         if G > 1:
-            def split(x, i):
-                return x.reshape((G, x.shape[0] // G) + x.shape[1:])[i]
-
-            gsum = {k: torch.zeros(p.shape, dtype=gdt, device=p.device) for k, p in params.items()}
+            gsum = {k: torch.zeros_like(p, dtype=gdt) for k, p in params.items()}
             lsum = None
             for i in range(G):
-                loss, grads = value_and_grad(params, {k: split(x, i) for k, x in batch.items()})
+                loss, grads = value_and_grad(params, {k: _microbatch(x, G, i)
+                                                      for k, x in batch.items()})
                 for k, g in grads.items():
                     gsum[k].add_(g.to(gdt))
                 del grads
@@ -72,8 +95,8 @@ def make_train_step(
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         new_params, new_opt = optimizer.update(grads, opt_state, params)
         metrics = {
-            "loss": loss,
-            "grad_norm": gnorm,
+            "loss": whole(loss),
+            "grad_norm": whole(gnorm),
             "step": new_opt["step"],
         }
         return new_params, new_opt, metrics
@@ -84,5 +107,5 @@ def make_train_step(
 def make_eval_step(model) -> Callable:
     def eval_step(params, batch):
         with torch.no_grad():
-            return {"loss": model.loss(params, batch)}
+            return {"loss": whole(model.loss(params, batch))}
     return eval_step
