@@ -129,10 +129,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    tokens on that mesh with attn "flash": exactly 2 ``sm90`` launches
    (``route_launches``), logits within phase 3's bf16 tolerance of the
    unsharded prefill's. 11b the dry run at published width and depth,
-   ``python -m repro_torch.launch.dryrun`` as two child processes at once on
-   the card's host, after 11c (CPU only; a fake process group of 256 or 512
-   ranks): qwen2-7b ``train_4k`` on the single-pod mesh and mixtral-8x7b
-   ``decode_32k`` on the multi-pod mesh, each record's per-device FLOPs,
+   ``python -m repro_torch.launch.dryrun`` as child processes all at once
+   on the card's host, after 11c (CPU only; a fake process group of 256 or
+   512 ranks): qwen2-7b ``train_4k`` on the single-pod mesh, mixtral-8x7b
+   ``decode_32k`` and (phase 12's) zamba2-2.7b ``long_500k`` on the multi-pod
+   mesh, each record's per-device FLOPs,
    bytes, collective bytes by kind, peak GiB, H100 roofline row and host
    seconds printed. 11c one more step of 11a's unsharded cell counted by
    ``repro_torch.launch.op_cost`` on the card's tensors (not timed): its dot
@@ -140,6 +141,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    roofline bound from ``launch.mesh.HW`` against 11a's median step, and the
    top 5 hotspots by FLOPs and by bytes. The results go on a JSON line of
    their own (``mesh``).
+12. mesh families: 12a whisper-medium and zamba2-2.7b at published widths
+   and depth, from phase 9's seeds, parameters and prompts (B 4,
+   attn="flash"), served in turn by the unsharded ``ServeEngine`` and by
+   ``ServeEngine(mesh=...)`` on a one-rank NCCL (1, 1) mesh, 8 greedy tokens
+   each: the mesh's prefill logits bit-equal to the unsharded ones or within
+   phase 3's bf16 tolerance of max |logits|, the tokens equal, its counted
+   run exactly 72 ``sm90`` launches at D 64 (whisper) and 9 at D 80
+   (zamba2), none ``simt``, each call of a mesh prefill held against its
+   plain version on its own inputs; prefill ms and decode ms per step of
+   both engines. 12b falcon-mamba-7b (2 of 64 layers) and zamba2-2.7b (6 of
+   54 layers: one group and the shared block) at published widths, trained
+   1 untimed and 3 timed steps by an unsharded ``Trainer`` and by
+   ``Trainer(mesh_shape=(1, 1))`` in turns (4 x 1024 tokens in 2
+   microbatches, AdamW, attn "plain"): loss, grad norm and every parameter
+   bit-equal or within 1e-6 relative; the step ms medians. 12c: zamba2-2.7b
+   ``long_500k`` on the multi-pod mesh dry-run with 11b's cells. The results
+   go on a JSON line of their own (``mesh_families``).
 
 Phase 3 also holds both flash-attention kernels (routes ``sm90`` and ``simt``)
 against their plain version (``ref.mha_reference``) at the reference tests'
@@ -154,7 +172,7 @@ causal) and at S 2048, beside their bound, the plain version and
 time per call.
 
 The last lines are the hub server's line, the families line, the train line,
-the mesh line, the card's name and power limit, the kernels line (one JSON
+the mesh line, the mesh families line, the card's name and power limit, the kernels line (one JSON
 object) and the result line
 ``{"ok": true, "device": {...}}``. Model files and stores go to a temporary
 directory outside the repository, removed at the end.
@@ -199,7 +217,7 @@ from repro_torch.formats.safetensors import SafetensorsFile  # noqa: E402
 from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.models import ssm, transformer, whisper  # noqa: E402
+from repro_torch.models import base as model_base  # noqa: E402
 from repro_torch.models.api import get_model, init_params  # noqa: E402
 from repro_torch.optim.optimizers import AdamW, OptimizerConfig, make_optimizer  # noqa: E402
 from repro_torch.serve.engine import RequestBatcher, ServeEngine  # noqa: E402
@@ -1014,11 +1032,11 @@ def phase_serve(tmp: str, seed: int) -> tuple:
         path_errs.append((tuple(q.shape), err))
         return got
 
-    transformer.flash_attention = checked
+    model_base.flash_attention = checked
     try:
         _serve(engine, prompts)
     finally:
-        transformer.flash_attention = flash_attention
+        model_base.flash_attention = flash_attention
     if len(path_errs) != launches:
         raise AssertionError(f"serve: {len(path_errs)} flash calls checked, {launches} launched")
     path_err = max(e for _, e in path_errs)
@@ -1711,7 +1729,7 @@ def phase_whisper(seed: int, smi: str) -> tuple:
     report, routes = _family_serve("whisper", cfg, engine, prompts, WHISPER_NEW,
                                    {"frames": frames}, "sm90", 3 * cfg.n_layers, smi)
     batch = {"tokens": torch.as_tensor(prompts, device=DEVICE), "frames": frames}
-    report.update(_family_checks("whisper", cfg, engine, batch, "sm90", whisper))
+    report.update(_family_checks("whisper", cfg, engine, batch, "sm90", model_base))
     report["seconds"] = time.perf_counter() - t0
     del engine
     torch.cuda.empty_cache()
@@ -1774,8 +1792,8 @@ def phase_zamba2(seed: int, smi: str) -> tuple:
     log(f"families zamba2: prefill {report['prefill_ms']:.2f} ms on the sm90 route (738.87 ms "
         f"when this shape took the simt route, on an H100 80GB HBM3 at 700 W)")
     batch = {"tokens": torch.as_tensor(prompts, device=DEVICE)}
-    report.update(_family_checks("zamba2", cfg, engine, batch, "sm90", ssm))
-    report["prefill_by_route"] = _prefill_by_route("zamba2", engine, batch, ssm, n_groups)
+    report.update(_family_checks("zamba2", cfg, engine, batch, "sm90", model_base))
+    report["prefill_by_route"] = _prefill_by_route("zamba2", engine, batch, model_base, n_groups)
     report["seconds"] = time.perf_counter() - t0
     del engine
     torch.cuda.empty_cache()
@@ -2253,8 +2271,13 @@ MESH_PREFILL_B, MESH_PREFILL_S = 4, 1024
 MESH_PREFILL_TOL = FLASH_TOL[torch.bfloat16]   # of max |logits|: the flash calls' own tolerance
 COUNT_TOL = 0.02                 # 11c: counted dot FLOPs against their closed form
 # 11b: the dry run at published width and depth, as child processes on the
-# card's host (CPU only: they see no card), both at once, after 11a and 11c
-DRYRUN_CELLS = (("qwen2-7b", "train_4k", "single"), ("mixtral-8x7b", "decode_32k", "multi"))
+# card's host (CPU only: they see no card), all at once, after 11a and 11c;
+# for phase 12, zamba2-2.7b's long_500k decode on the multi-pod mesh (9
+# shared-block caches of 524,288 positions, sequence-sharded). falcon-mamba's
+# train_4k is left to the dry run's --all sweep: its scan loops dispatch every
+# chunk of 64 layers x 8 microbatches, many minutes of host time
+DRYRUN_CELLS = (("qwen2-7b", "train_4k", "single"), ("mixtral-8x7b", "decode_32k", "multi"),
+                ("zamba2-2.7b", "long_500k", "multi"))
 DRYRUN_S = 300                   # each must end within this
 
 
@@ -2485,6 +2508,191 @@ def phase_mesh(tmp: str, seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the SSM and Whisper families on a (1, 1) mesh
+# ---------------------------------------------------------------------------
+
+MESH_FAMILY_NEW = 8              # 12a: greedy tokens each engine serves
+# 12b: depth cuts at published widths: falcon-mamba's 2 of 64 layers, and
+# zamba2's first group of 6 Mamba-2 layers (of 54) with the shared block
+MESH_TRAIN_LAYERS = {"falcon-mamba-7b": 2, "zamba2-2.7b": 6}
+MESH_TRAIN_WARMUP, MESH_TRAIN_STEPS = 1, 3
+
+
+def _mesh_family_serve(name: str, cfg, engines, prompts, extra, head_dim: int, n_calls: int,
+                       smi: str) -> dict:
+    """12a for one model: the unsharded engine and the (1, 1)-mesh engine
+    generate in turn, the mesh's run counted from 0; its prefill logits and
+    tokens against the unsharded ones; then each flash call of a mesh prefill
+    held against its plain version on its own inputs."""
+    runs = {}
+    for which in ("unsharded", "mesh"):
+        _build.reset_launch_counts()
+        fa.reset_route_launches()
+        runs[which] = _generate(engines[which], prompts, MESH_FAMILY_NEW, extra)
+        runs[which]["launches"] = _build.launch_counts()["flash_attention"]
+        runs[which]["routes"] = fa.route_launches()
+    routes = runs["mesh"]["routes"]
+    if runs["mesh"]["launches"] != n_calls or routes != {"sm90": n_calls, "simt": 0}:
+        raise AssertionError(f"mesh families {name}: the mesh engine's prefill launched "
+                             f"{runs['mesh']['launches']} flash calls by route {routes}, want "
+                             f"{n_calls} on sm90")
+    want = runs["unsharded"]["prefill"].logits[0]
+    got = runs["mesh"]["prefill"].logits[0].full_tensor()
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    bit_equal = torch.equal(got, want)
+    if not (bit_equal or err <= MESH_PREFILL_TOL):
+        raise AssertionError(f"mesh families {name}: prefill logits stray {err:.3e} of max "
+                             f"|logits| from the unsharded engine's (limit {MESH_PREFILL_TOL})")
+    toks = {w: r["res"].tokens for w, r in runs.items()}
+    if not np.array_equal(toks["mesh"], toks["unsharded"]):
+        raise AssertionError(f"mesh families {name}: greedy tokens differ: {toks}")
+    # each flash call of a mesh prefill on its own inputs (not counted above)
+    errs = []
+
+    def checked(q, k, v, *, causal, window=0):
+        out, e = flash_checked(q, k, v, causal, window, route="sm90")
+        errs.append((tuple(q.shape), e))
+        return out
+
+    eng = engines["mesh"]
+    batch = {"tokens": eng._place(torch.as_tensor(prompts))}
+    batch.update({k: eng._place(v) for k, v in (extra or {}).items()})
+    model_base.flash_attention = checked
+    try:
+        eng.model.prefill(eng.params, batch)
+    finally:
+        model_base.flash_attention = flash_attention
+    dims = sorted({s[-1] for s, _ in errs})
+    if len(errs) != n_calls or dims != [head_dim]:
+        raise AssertionError(f"mesh families {name}: {len(errs)} flash calls at head dims "
+                             f"{dims}, want {n_calls} at {head_dim}")
+    ms = {w: {"prefill_ms": 1e3 * r["prefill"].seconds[0],
+              "decode_ms": 1e3 * float(np.mean(r["decode"].seconds))} for w, r in runs.items()}
+    out = {"launches": routes, "head_dim": head_dim, "logits_bit_equal": bit_equal,
+           "logits_rel_err": err, "tokens_equal": True, "flash_err": max(e for _, e in errs),
+           "ms": ms, "card": smi}
+    log(f"mesh families 12a {name}: {prompts.shape[0]} prompts of {prompts.shape[1]} tokens, "
+        f"{MESH_FAMILY_NEW} new: the (1, 1)-mesh engine's prefill launched {routes} (head dim "
+        f"{head_dim}), logits {'bit-equal to' if bit_equal else f'{err:.3e} of max |logits| from'} "
+        f"the unsharded engine's, the {MESH_FAMILY_NEW} greedy tokens equal; each flash call "
+        f"within {out['flash_err']:.3e} of its plain version (tolerance 2e-2); prefill "
+        f"{ms['unsharded']['prefill_ms']:.2f} ms unsharded, {ms['mesh']['prefill_ms']:.2f} ms on "
+        f"the mesh; decode {ms['unsharded']['decode_ms']:.3f} vs {ms['mesh']['decode_ms']:.3f} ms "
+        f"per step (the difference is DTensor's host cost); card: {smi}")
+    return out
+
+
+def _mesh_family_train(tmp: str, seed: int, arch: str, cfg, smi: str) -> dict:
+    """12b for one model: an unsharded Trainer and Trainer(mesh_shape=(1, 1))
+    from the seed, step for step in turns; loss, grad norm and every
+    parameter compared after each step."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    trainers = []
+    for which, shape in (("one", None), ("mesh", (1, 1))):
+        tc = TrainConfig(arch=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                         microbatches=TRAIN_MICRO, steps=MESH_TRAIN_WARMUP + MESH_TRAIN_STEPS,
+                         ckpt_every=10**9, run_dir=os.path.join(tmp, f"{arch}-{which}"),
+                         resume=False, mesh_shape=shape, seed=seed,
+                         optimizer=OptimizerConfig(name=cfg.optimizer, lr=TRAIN_LR),
+                         device=DEVICE)
+        trainers.append(Trainer(tc, run_id=f"{arch}-{which}"))
+    one, mesh = trainers
+    steps, bit_equal, worst = [], True, 0.0
+    for i in range(MESH_TRAIN_WARMUP + MESH_TRAIN_STEPS):
+        hb = one.data.batch_at(i)
+        torch.cuda.synchronize()
+        r1 = one.train_step(hb)
+        torch.cuda.synchronize()
+        r2 = mesh.train_step(hb)
+        torch.cuda.synchronize()
+        same = r1["loss"] == r2["loss"] and r1["grad_norm"] == r2["grad_norm"]
+        for k, v in one.params.items():
+            w = mesh.params[k]
+            if not isinstance(w, DTensor):
+                raise AssertionError(f"mesh families {arch}: {k} is not a DTensor on the mesh")
+            w = w.to_local()
+            if not torch.equal(v, w):
+                same = False
+                worst = max(worst, _rel_err(w, v))
+        worst = max(worst, abs(r2["loss"] - r1["loss"]) / abs(r1["loss"]),
+                    abs(r2["grad_norm"] - r1["grad_norm"]) / abs(r1["grad_norm"]))
+        bit_equal &= same
+        steps.append({"step": i + 1, "timed": i >= MESH_TRAIN_WARMUP, "loss": r1["loss"],
+                      "loss_mesh": r2["loss"], "ms": r1["sec"] * 1e3,
+                      "ms_mesh": r2["sec"] * 1e3, "bit_equal": same})
+    if not (bit_equal or worst <= MESH_TOL):
+        raise AssertionError(f"mesh families {arch}: the (1, 1) mesh strays {worst:.3e} "
+                             f"(relative) from the unsharded trainer, above {MESH_TOL}: {steps}")
+    med = {w: float(np.median([s[k] for s in steps if s["timed"]]))
+           for w, k in (("unsharded", "ms"), ("mesh", "ms_mesh"))}
+    n_params = sum(v.numel() for v in one.params.values())
+    log(f"mesh families 12b {arch}: {cfg.n_layers} layers at published widths "
+        f"({n_params / 1e9:.3f} G params), {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+        f"{TRAIN_MICRO} microbatches, AdamW lr {TRAIN_LR}, attn 'plain': losses "
+        f"{[round(s['loss'], 6) for s in steps]}; loss, grad norm and every parameter after each "
+        f"step {'bit-equal' if bit_equal else f'within {worst:.3e} relative'}; step ms unsharded "
+        f"{[round(s['ms'], 1) for s in steps]}, mesh {[round(s['ms_mesh'], 1) for s in steps]} "
+        f"(the first {MESH_TRAIN_WARMUP} untimed); medians {med['unsharded']:.1f} vs "
+        f"{med['mesh']:.1f} ms; card: {smi}")
+    del trainers, one, mesh
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "params": n_params, "steps": steps, "bit_equal": bit_equal,
+            "max_rel_err": worst, "step_ms_median": med, "card": smi}
+
+
+def phase_mesh_families(tmp: str, seed: int, smi: str) -> dict:
+    """Phase 12: 12a zamba2-2.7b and whisper-medium at published widths and
+    depth served by the unsharded engine and on a (1, 1) NCCL mesh, from
+    phase 9's parameters and prompts; 12b falcon-mamba-7b and zamba2-2.7b
+    (depth cut) trained unsharded and on that mesh. 12c, the dry runs, ran
+    with phase 11's."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.rules import ShardingRules
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(1, 1, device_type="cuda")
+    rules = ShardingRules.for_mesh(mesh)
+    out = {"serve": {}, "train": {}}
+    # 12a: phase 9's draws, in phase 9's order
+    cfg = whisper_medium.CONFIG
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    params = init_params(cfg, gen)
+    frames = (torch.randn((FAMILY_BATCH, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                          device=DEVICE) * 0.02).to(torch.bfloat16)
+    prompts = np.random.default_rng(seed + 5).integers(
+        1, cfg.vocab, (FAMILY_BATCH, WHISPER_PROMPT)).astype(np.int32)
+    engines = {"unsharded": ServeEngine(cfg, params, device=DEVICE),
+               "mesh": ServeEngine(cfg, params, device=DEVICE, mesh=mesh, rules=rules)}
+    del params
+    out["serve"]["whisper"] = _mesh_family_serve("whisper", cfg, engines, prompts,
+                                                 {"frames": frames}, cfg.hd, 3 * cfg.n_layers, smi)
+    del engines, frames
+    torch.cuda.empty_cache()
+    cfg = zamba2_2_7b.CONFIG
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed + 6))
+    prompts = np.random.default_rng(seed + 6).integers(
+        1, cfg.vocab, (FAMILY_BATCH, LM_PROMPT)).astype(np.int32)
+    engines = {"unsharded": ServeEngine(cfg, params, device=DEVICE),
+               "mesh": ServeEngine(cfg, params, device=DEVICE, mesh=mesh, rules=rules)}
+    del params
+    out["serve"]["zamba2"] = _mesh_family_serve("zamba2", cfg, engines, prompts, None, cfg.hd,
+                                                cfg.n_layers // cfg.attn_every, smi)
+    del engines
+    torch.cuda.empty_cache()
+    # 12b
+    for arch, module in (("falcon-mamba-7b", falcon_mamba_7b), ("zamba2-2.7b", zamba2_2_7b)):
+        cfg = dataclasses.replace(module.CONFIG, n_layers=MESH_TRAIN_LAYERS[arch])
+        out["train"][arch] = _mesh_family_train(tmp, seed, arch, cfg, smi)
+    out["launches"] = {name: r["launches"] for name, r in out["serve"].items()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mesh families: phase 12 took {out['seconds']:.1f} s; card: {smi}")
+    return out
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -2539,6 +2747,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-mesh-")
     try:
         mesh = phase_mesh(tmp, SEED, smi)
+        mesh_families = phase_mesh_families(tmp, SEED, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # no path of the JAX package calls xor_2d: its count is phase 3's
@@ -2571,17 +2780,22 @@ def main() -> int:
     # shape, launches and build report (D 128 phase 7, D 80 9b, D 64 9a)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     timed = families["timed"]
+    mf = mesh_families["launches"]
     sm90_paths = {128: (flash_reports["sm90"], launches["flash_attention"], "phase 7 (serve)"),
-                  80: (timed["sm90_zamba2"], families["zamba2"]["flash_launches"]["sm90"],
-                       "phase 9b (zamba2-2.7b's shared attention)"),
-                  64: (timed["sm90_whisper"], families["whisper"]["flash_launches"]["sm90"],
-                       "phase 9a (whisper-medium)")}
+                  80: (timed["sm90_zamba2"], families["zamba2"]["flash_launches"]["sm90"]
+                       + mf["zamba2"]["sm90"],
+                       "phases 9b and 12a (zamba2-2.7b's shared attention, unsharded and on a "
+                       "(1, 1) mesh)"),
+                  64: (timed["sm90_whisper"], families["whisper"]["flash_launches"]["sm90"]
+                       + mf["whisper"]["sm90"],
+                       "phases 9a and 12a (whisper-medium, unsharded and on a (1, 1) mesh)")}
     rows = {
         "sm90": {"main": flash_reports["sm90"],
                  "launches": sum(n for _, n, _ in sm90_paths.values())
                  + mesh["prefill"]["launches"]["sm90"],
-                 "launched_by": "phases 7 (serve), 9a (whisper-medium), 9b (zamba2-2.7b) and "
-                                "11a (the prefill on a (1, 1) mesh, D 128)",
+                 "launched_by": "phases 7 (serve), 9a (whisper-medium), 9b (zamba2-2.7b), "
+                                "11a (the prefill on a (1, 1) mesh, D 128) and 12a (whisper-medium "
+                                "and zamba2-2.7b on a (1, 1) mesh)",
                  "instance": "flash_fwd_sm90_kernel<128>",
                  "instances": {f"flash_fwd_sm90_kernel<{D}>": {
                      **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
@@ -2589,9 +2803,11 @@ def main() -> int:
                      for D, (r, n, by) in sm90_paths.items()},
                  "err": max(flash_reports["sm90"]["max_abs_err"], path_err,
                             timed["sm90_zamba2"]["max_abs_err"], timed["sm90_whisper"]["max_abs_err"],
-                            families["whisper"]["flash_err"], families["zamba2"]["flash_err"])},
+                            families["whisper"]["flash_err"], families["zamba2"]["flash_err"],
+                            *(r["flash_err"] for r in mesh_families["serve"].values()))},
         "simt": {"main": timed["simt_zamba2"], "launches": flash_launches_phase3["simt"],
-                 "launches_on_serving_paths": families["launches"]["simt"],
+                 "launches_on_serving_paths": families["launches"]["simt"]
+                 + sum(r["simt"] for r in mf.values()),
                  "launched_by": "phase 3 only (kernel checks and timings): no serving path "
                                 "takes it (bf16 at head dims 64, 80 and 128 takes sm90)",
                  "instance": "flash_fwd_kernel<bf16,80,64>",
@@ -2612,6 +2828,7 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"train": train}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"mesh_families": mesh_families}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -23,10 +23,9 @@ Usage:
     python -m repro_torch.launch.dryrun --all [--mesh single|multi|both] [--force]
     python -m repro_torch.launch.dryrun --arch ... --variant remat=dots,grad=bfloat16
 
-``--all`` drives one subprocess per cell of the transformer family (resumable:
-cells with a JSON record are skipped unless --force). Records land in
-experiments/dryrun_torch/<arch>__<shape>__<mesh>[__<variant>].json. The SSM
-and Whisper families on a mesh wait for the next slice of the port.
+``--all`` drives one subprocess per cell of every family (resumable: cells
+with a JSON record are skipped unless --force). Records land in
+experiments/dryrun_torch/<arch>__<shape>__<mesh>[__<variant>].json.
 """
 
 from __future__ import annotations
@@ -40,7 +39,6 @@ import time
 from pathlib import Path
 
 DEFAULT_OUT = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
-TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 VARIANT_KEYS = ("remat", "grad", "attn", "cq", "ck", "mb")
 
 
@@ -89,9 +87,6 @@ def build_step(cfg, cell, mesh, rules, *, remat_policy="nothing", grad_dtype="fl
     from repro_torch.sharding.rules import spec_tree_sds, spec_tree_shardings
     from repro_torch.train.step import make_train_step
 
-    if cfg.family not in TRANSFORMER_FAMILIES:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}) on a mesh waits for slice 10 "
-                                  "of the port")
     model = get_model(cfg, attn="plain", remat_policy=remat_policy, mesh=mesh, rules=rules)
     params = distribute(abstract_params(cfg), param_shardings(cfg, mesh, rules))
     batch = distribute(abstract_inputs(cfg, cell), input_shardings(cfg, cell, mesh, rules))
@@ -219,10 +214,7 @@ def all_cells(mesh_kind: str):
 
     meshes = ["single", "multi"] if mesh_kind == "both" else [mesh_kind]
     for arch in ARCH_IDS:
-        cfg = get_config(arch)
-        if cfg.family not in TRANSFORMER_FAMILIES:
-            continue
-        for cell in cells_for(cfg):
+        for cell in cells_for(get_config(arch)):
             for mk in meshes:
                 yield arch, cell.name, mk
 

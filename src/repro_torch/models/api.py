@@ -45,25 +45,15 @@ def get_model(cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing
     default) or the plain PyTorch version (``"plain"``); ``MambaLM`` has no
     attention and ignores it. ``remat_policy`` (``"nothing"``, ``"dots"`` or
     ``"none"``, the reference's) sets what the backward pass of ``loss``
-    recomputes. With ``mesh`` and ``rules`` the model runs on DTensors laid
-    out by the rules (the transformer family; the SSM and Whisper families
-    on a mesh are not ported yet)."""
+    recomputes. With ``mesh`` the model runs on DTensors laid out by
+    ``rules`` (the mesh's default rules when None), whatever its family."""
     from repro_torch.models.ssm import MambaLM, Zamba2LM
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.models.whisper import WhisperModel
 
-    if mesh is not None and cfg.family in ("encdec", "ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}) on a device mesh waits for the "
-                                  "next slice of the port; the transformer family runs on one")
-    if mesh is not None:
-        return TransformerLM(cfg, attn, remat_policy, mesh=mesh, rules=rules)
-    if cfg.family == "encdec":
-        return WhisperModel(cfg, attn, remat_policy)
-    if cfg.family == "ssm":
-        return MambaLM(cfg, attn, remat_policy)
-    if cfg.family == "hybrid":
-        return Zamba2LM(cfg, attn, remat_policy)
-    return TransformerLM(cfg, attn, remat_policy)
+    cls = {"encdec": WhisperModel, "ssm": MambaLM, "hybrid": Zamba2LM}.get(cfg.family,
+                                                                          TransformerLM)
+    return cls(cfg, attn, remat_policy, mesh=mesh, rules=rules)
 
 
 # ---------------------------------------------------------------------------

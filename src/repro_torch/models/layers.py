@@ -11,9 +11,11 @@ and :func:`remat`, the reference's rematerialization policies
 
 On a device mesh (DTensor operands): :func:`decode_attention_sp` is the
 reference's flash-decoding ``shard_map`` as a ``local_map`` over a
-sequence-sharded cache, and :func:`moe_block` dispatches one group per data
-shard inside a ``local_map``; the reference's ``ws`` constraint is the model's
-``redistribute``. The chunked branch of :func:`attention` computes the
+sequence-sharded cache, :func:`moe_block` dispatches one group per data
+shard inside a ``local_map``, :func:`unpack_columns` splits a packed weight
+into channel-aligned blocks with one all-to-all, and :func:`mesh_sum` reduces
+a partial sum inside a ``local_map``; the reference's ``ws`` constraint is the
+model's ``redistribute``. The chunked branch of :func:`attention` computes the
 reference's function without its chunk-divisibility assert (a ragged last
 chunk is fine). :func:`layer_range` is the models' layer loop (the
 reference's ``lax.scan``): it publishes the layer index in :data:`LAYER`.
@@ -58,6 +60,8 @@ __all__ = [
     "attention",
     "decode_attention_sp",
     "redistribute",
+    "mesh_sum",
+    "unpack_columns",
     "swiglu",
     "gelu_mlp",
     "moe_block",
@@ -325,6 +329,96 @@ def redistribute(x, mesh, placements):
     return _Layout.apply(x, tuple(placements))
 
 
+class _Sum(torch.autograd.Function):
+    """All-reduce (sum) of a plain tensor over one mesh dim. Each rank then
+    uses the sum for its own channels only, so the gradient that comes back
+    is a partial sum too: the backward pass all-reduces it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.group = (mesh, dim)
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", ctx.group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(grad.contiguous(), "sum", ctx.group)), \
+            None, None
+
+
+def mesh_sum(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """Inside ``local_map``: the sum of each rank's partial ``x`` over the
+    mesh dims ``dims`` (one all-reduce each; none off the mesh), with the
+    gradient of a sum that every rank uses for its own channels."""
+    for d in dims:
+        x = _Sum.apply(x, mesh, d)
+    return x
+
+
+def _unpack_order(n: int, T: int, r: int):
+    """The all-to-all that turns column-block layout into channel layout,
+    seen from rank ``r`` of ``T``: the packed dim holds ``n`` blocks of
+    ``T`` pieces each (piece g = b·T + s is block b's piece for rank s) and
+    rank r holds pieces r·n .. r·n + n - 1. Returns (the order in which r
+    sends its own pieces, by destination rank; the pieces it sends to each
+    rank; the pieces it receives from each rank), counted in pieces."""
+    mine = range(r * n, (r + 1) * n)
+    order = sorted(range(n), key=lambda j: ((r * n + j) % T, r * n + j))
+    sends = [sum(1 for g in mine if g % T == s) for s in range(T)]
+    recvs = [sum(1 for b in range(n) if (b * T + r) // n == s) for s in range(T)]
+    return order, sends, recvs
+
+
+def unpack_columns(w: torch.Tensor, n: int):
+    """The ``n`` equal column blocks of a packed weight (..., n·m), such as
+    Mamba's ``in_proj`` (x and z side by side), as ``n`` tensors of
+    (..., m) laid out as ``w``.
+
+    Off the mesh they are views. On a mesh whose dim cuts the packed dim,
+    rank r of T holds packed columns [r·c, (r+1)·c), c = n·m / T: on two
+    ranks rank 0 holds all of x and rank 1 all of z, where each rank needs
+    its own m / T columns of every block. One all-to-all over that mesh dim
+    moves each rank's pieces to their owners (its backward pass is the
+    inverse all-to-all): it moves a rank's c columns of its FSDP shard at
+    most, where splitting the product (B, S, n·m) would gather it whole."""
+    from repro_torch.sharding.rules import is_dtensor
+
+    if not is_dtensor(w):
+        return w.chunk(n, dim=-1)
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    cut = [i for i, p in enumerate(w.placements) if p == Shard(w.dim() - 1)]
+    if len(cut) > 1:
+        raise ValueError(f"the packed dim of a {tuple(w.shape)} weight is split over mesh dims "
+                         f"{cut}; unpack_columns moves it over one")
+    if not cut:
+        pl = tuple(w.placements)
+        return local_map(lambda t: t.chunk(n, dim=-1), out_placements=(pl,) * n,
+                         in_placements=(pl,), device_mesh=mesh)(w)
+    dim = cut[0]
+    T = mesh.size(dim)
+    order, sends, recvs = _unpack_order(n, T, mesh.get_local_rank(dim))
+
+    def local(t):
+        k = t.shape[-1] // n                                   # one piece's columns
+        rows = t.movedim(-1, 0).reshape(n, k, *t.shape[:-1])   # pieces, columns first
+        send = rows[list(order)].reshape(n * k, *t.shape[:-1])
+        got = funcol.all_to_all_single_autograd(send, [c * k for c in recvs],
+                                                [c * k for c in sends], (mesh, dim))
+        got = funcol.wait_tensor(got).reshape(n, k, *t.shape[:-1])
+        return tuple(got[b].movedim(0, -1) for b in range(n))
+
+    pl = tuple(w.placements)
+    return local_map(local, out_placements=(pl,) * n, in_placements=(pl,),
+                     device_mesh=mesh)(w)
+
+
 # ---------------------------------------------------------------------------
 # Decode attention: flash-decoding over a sequence-sharded KV cache
 # ---------------------------------------------------------------------------
@@ -342,12 +436,14 @@ def decode_attention_sp(q, k_cache, v_cache, cache_len: int, *, mesh, sp_axis: s
     are also masked). Inputs in another layout are redistributed to these.
 
     Flash-decoding on the mesh: each rank of ``sp_axis`` computes a partial
-    online softmax over its local sequence chunk (global positions
-    ``rank * chunk + arange(chunk)``), then the partials merge with one
-    all-reduce max and two all-reduce sums of (B, H·D)-sized tensors over that
-    axis: bytes moved are O(B·H·D), never a cache all-gather.
+    online softmax over its local sequence chunk (its global positions start
+    at the chunk's offset in the layout: where ``sp_axis`` does not divide S,
+    DTensor gives the last ranks shorter chunks, or none), then the partials
+    merge with one all-reduce max and two all-reduce sums of (B, H·D)-sized
+    tensors over that axis: bytes moved are O(B·H·D), never a cache all-gather.
     """
     from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
 
     B, H, D = q.shape
@@ -358,20 +454,29 @@ def decode_attention_sp(q, k_cache, v_cache, cache_len: int, *, mesh, sp_axis: s
     sp_dim = mesh.mesh_dim_names.index(sp_axis)
     group = (mesh, sp_dim)
 
+    q_pl = spec_placements(mesh, PartitionSpec(bentry, None, None))
+    c_pl = spec_placements(mesh, PartitionSpec(bentry, sp_axis, None, None))
+    lo = compute_local_shape_and_global_offset(k_cache.shape, mesh, c_pl)[1][1]
+
     def local(q, kc, vc):
         # every shape here is a local shard's
         B, chunk = kc.shape[0], kc.shape[1]
-        pos = mesh.get_local_rank(sp_dim) * chunk + torch.arange(chunk, device=kc.device)
         qg = q.reshape(B, Kv, G, D)
-        s = torch.einsum("bkgd,bskd->bkgs", qg.float(), kc.float()) * scale
-        valid = pos < cache_len
-        if window:
-            valid &= pos > cache_len - window
-        s = torch.where(valid[None, None, None, :], s, NEG_INF)
-        m = s.amax(dim=-1)                                   # (B, Kv, G)
-        p = torch.exp(s - m[..., None])
-        l = p.sum(dim=-1)
-        o = torch.einsum("bkgs,bskd->bkgd", p.to(vc.dtype).float(), vc.float())
+        if chunk == 0:   # an uneven layout left this rank no positions
+            m = torch.full((B, Kv, G), NEG_INF, dtype=torch.float32, device=q.device)
+            l = torch.zeros_like(m)
+            o = torch.zeros((B, Kv, G, D), dtype=torch.float32, device=q.device)
+        else:
+            pos = lo + torch.arange(chunk, device=kc.device)
+            s = torch.einsum("bkgd,bskd->bkgs", qg.float(), kc.float()) * scale
+            valid = pos < cache_len
+            if window:
+                valid &= pos > cache_len - window
+            s = torch.where(valid[None, None, None, :], s, NEG_INF)
+            m = s.amax(dim=-1)                                   # (B, Kv, G)
+            p = torch.exp(s - m[..., None])
+            l = p.sum(dim=-1)
+            o = torch.einsum("bkgs,bskd->bkgd", p.to(vc.dtype).float(), vc.float())
         m_g = funcol.wait_tensor(funcol.all_reduce(m, "max", group))
         corr = torch.exp(m - m_g)
         l_g = funcol.wait_tensor(funcol.all_reduce(l * corr, "sum", group))
@@ -379,8 +484,6 @@ def decode_attention_sp(q, k_cache, v_cache, cache_len: int, *, mesh, sp_axis: s
         out = o_g / torch.clamp(l_g, min=1e-30)[..., None]
         return out.reshape(B, H, D).to(q.dtype)
 
-    q_pl = spec_placements(mesh, PartitionSpec(bentry, None, None))
-    c_pl = spec_placements(mesh, PartitionSpec(bentry, sp_axis, None, None))
     return local_map(local, out_placements=list(q_pl), in_placements=(q_pl, c_pl, c_pl),
                      device_mesh=mesh, redistribute_inputs=True)(q, k_cache, v_cache)
 

@@ -1,6 +1,7 @@
 # Port of src/repro/models/ssm.py: rewritten in PyTorch, names and layouts kept.
-"""State-space models on one card: Mamba-1 (falcon-mamba-7b) and the
-Mamba-2/SSD hybrid with one shared attention block (zamba2-2.7b).
+"""State-space models on one card or on a device mesh: Mamba-1
+(falcon-mamba-7b) and the Mamba-2/SSD hybrid with one shared attention block
+(zamba2-2.7b).
 
 Parameters are the reference's flat dicts (``embed``, ``final_norm``,
 ``lm_head``, zamba2's ``shared.*`` and the per-layer ``blocks.*`` tensors
@@ -12,35 +13,49 @@ What changes from the reference:
 * ``lax.scan`` over stacked layers and over sequence chunks becomes a Python
   loop; each layer of ``loss`` and each chunk body of the scans is wrapped by
   :func:`layers.remat` under ``remat_policy``, where the reference wraps them
-  in ``jax.checkpoint``; the sharding constraints are dropped (one card).
+  in ``jax.checkpoint``.
 * Mamba-1's ``associative_scan`` inside a chunk becomes a log-depth doubling
   (Hillis-Steele) scan with the same combine ``(a1*a2, b1*a2 + b2)``: 7 steps at
   chunk 128. The chunk rule (``chunk = min(chunk, S)``, halved until it divides
   S) is the reference's.
 * The depthwise causal conv is ``F.conv1d`` with ``groups=C`` in float32 (the
   reference's NWC layout transposed to NCW).
+* The packed input projections (``in_proj``, ``in_proj_xz``) are used as their
+  x and z column blocks (``layers.unpack_columns``), so that on a mesh each
+  rank holds matching channels of both.
 * The decode steps write zamba2's shared-attention K/V into the preallocated
   cache in place, as ``TransformerLM.decode_step`` does; the O(1) SSM and conv
-  states come back as new tensors.
-* With no mesh, the shared block's decode is ``layers.attention`` with
-  ``q_offset`` (the reference's single-device branch); ``decode_attention_sp``
-  waits for the mesh slice. Its full-sequence attention takes the flash kernel
-  under ``attn="flash"`` and ``layers.attention`` under ``"plain"``.
+  states come back as new tensors. The shared block's full-sequence attention
+  takes the flash kernel under ``attn="flash"`` and ``layers.attention`` under
+  ``"plain"``.
+
+On a mesh (``mesh`` and ``rules``) the parameters and inputs are DTensors laid
+out by the reference's rules, and the model is the reference's GSPMD program
+written out (``models.base``): its ``with_sharding_constraint`` points are
+``_ws`` calls, each layer's weights are gathered over their FSDP axes, and each
+layer's conv and scan run under one ``local_map`` on the rank's own d_inner
+channels (Mamba-1) or SSD heads (zamba2), so the Python loops over chunks
+dispatch plain tensor ops. Mamba-1's contraction of its channels with
+``x_proj`` is a partial sum, all-reduced inside that ``local_map`` before the
+dt/B/C norms; zamba2's B, C and dt arrive whole on every model rank (each
+takes its heads' slice), its C·Bᵀ is computed whole on each, and its gated
+norm's mean adds the ranks' sums. The shared block's weights are gathered
+once a pass for all its invocations; its decode runs
+``layers.decode_attention_sp`` over the sequence-sharded cache on a model
+axis wider than one.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (check_attn, count_params, layer_params, logits_f32,
-                                            stacked_params)
-from repro_torch.sharding.rules import ParamSpec
+from repro_torch.models.base import ModelBase, layer_params, logits_f32, stacked_params
+from repro_torch.sharding.rules import ParamSpec, safe_entry
 
 __all__ = ["MambaLM", "Zamba2LM"]
 
@@ -86,22 +101,33 @@ def _chunk_len(chunk: int, S: int) -> int:
     return chunk
 
 
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, sum_over, n: int,
+                eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm of y (..., C) over all ``n`` channels, of which this rank
+    holds C: ``sum_over`` adds the ranks' sums of squares (the identity on
+    one card), so the mean is the global one."""
+    yf = y.float()
+    var = sum_over(yf.square().sum(dim=-1, keepdim=True)) / n
+    return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
 # ===========================================================================
 # Mamba-1 (falcon-mamba-7b)
 # ===========================================================================
 
-class MambaLM:
+class MambaLM(ModelBase):
     # cache entries the serving engine grows before decode: none, the SSM and
     # conv states are O(1) in the sequence
     GROWING_CACHE = ()
+    # the weights of one layer's conv + SSM, all split on d_inner like its input
+    MIXER = ("conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D")
 
-    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing"):
+    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing", *,
+                 mesh=None, rules=None):
         """``attn`` is accepted for a uniform ``get_model`` and unused: the
         model has no attention."""
         assert cfg.ssm is not None and cfg.ssm.version == 1
-        self.cfg = cfg
-        self.attn = check_attn(attn)
-        self.remat_policy = L.check_remat(remat_policy)
+        super().__init__(cfg, attn, remat_policy, mesh=mesh, rules=rules)
 
     @property
     def dt_rank(self) -> int:
@@ -136,22 +162,19 @@ class MambaLM:
         t.update({f"blocks.{k}": v for k, v in blk.items()})
         return t
 
-    def param_count(self) -> int:
-        return count_params(self.param_templates())
-
-    active_param_count = param_count
-
     # ------------------------------------------------------------------
-    def _ssm_inputs(self, x, p):
-        """x: (B, S, DI) post-conv. Returns dt (B,S,DI) f32, Bs/Cs (B,S,N) f32."""
+    def _ssm_inputs(self, x, x_proj, dt_proj, dt_bias, sum_over):
+        """x: (B, S, DI) post-conv. Returns dt (B,S,DI) f32, Bs/Cs (B,S,N) f32.
+        On a mesh x holds the rank's channels: the contraction with
+        ``x_proj`` is a partial sum, reduced by ``sum_over`` before the norms."""
         c = self.cfg
         N, R = c.ssm.d_state, self.dt_rank
-        proj = (x @ p["x_proj"]).float()
+        proj = sum_over((x @ x_proj).float())
         dt_in, Bs, Cs = torch.split(proj, [R, N, N], dim=-1)
         # falcon-mamba applies parameter-free RMS norm to dt/B/C streams
         dt_in, Bs, Cs = _param_free_rms(dt_in), _param_free_rms(Bs), _param_free_rms(Cs)
-        dt = dt_in @ p["dt_proj"].float()
-        return F.softplus(dt + p["dt_bias"].float()), Bs, Cs
+        dt = dt_in @ dt_proj.float()
+        return F.softplus(dt + dt_bias.float()), Bs, Cs
 
     def _selective_scan(self, x, dt, A, Bs, Cs, h0, chunk):
         """Chunked selective scan.
@@ -176,75 +199,131 @@ class MambaLM:
             ys.append(y)
         return torch.cat(ys, dim=1), h
 
+    def _mixer(self, xi, z, p, states=None):
+        """Conv, SSM and gate of one layer over the channels of xi / z
+        ((B, S, DI), laid out ("batch", None, "tp")): on a mesh one
+        ``local_map`` over each rank's own channels, the x_proj partial sum
+        reduced inside it. Over a full sequence (``states`` None): (y (B, S,
+        DI), final SSM state (B, DI, N)); one step (xi, z (B, DI); ``states``
+        = (conv state (B, K-1, DI), SSM state (B, DI, N))): (y (B, DI), new
+        conv state, new SSM state)."""
+        c = self.cfg
+        sums = self._cut_dims(xi, -1)
+
+        def sum_over(t):
+            return L.mesh_sum(t, self.mesh, sums)
+
+        def full(xi, z, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D):
+            xc = F.silu(_causal_conv(xi, conv_w, conv_b))
+            dt, Bs, Cs = self._ssm_inputs(xc, x_proj, dt_proj, dt_bias, sum_over)
+            A = -torch.exp(A_log.float())
+            h0 = torch.zeros((xc.shape[0], xc.shape[-1], c.ssm.d_state), dtype=torch.float32,
+                             device=xc.device)
+            y, hN = self._selective_scan(xc.float(), dt, A, Bs, Cs, h0, c.ssm.chunk)
+            y = y + D.float() * xc.float()
+            return (y * F.silu(z.float())).to(xi.dtype), hN
+
+        def step(xi, z, conv_state, hst, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D):
+            xi, conv_state = _conv_step(xi, conv_state, conv_w, conv_b)
+            xi = F.silu(xi)
+            dt, Bs, Cs = (v[:, 0] for v in self._ssm_inputs(xi[:, None, :], x_proj, dt_proj,
+                                                             dt_bias, sum_over))
+            A = -torch.exp(A_log.float())
+            xf = xi.float()
+            hst = torch.exp(dt[..., None] * A) * hst + (dt * xf)[..., None] * Bs[:, None, :]
+            y = torch.einsum("bdn,bn->bd", hst, Cs) + D.float() * xf
+            return (y * F.silu(z.float())).to(xi.dtype), conv_state, hst
+
+        w = [p[k] for k in self.MIXER]
+        if states is None:
+            out = None
+            if self.sharded:
+                out = (xi.placements, self._placements(("batch", "tp", None),
+                                                       (xi.shape[0], xi.shape[-1], 1)))
+            return self._split(full, xi, out, xi, z, *w)
+        out = None
+        if self.sharded:
+            out = (xi.placements, states[0].placements, states[1].placements)
+        return self._split(step, xi, out, xi, z, *states, *w)
+
+    def _weights(self, stacked, i: int) -> Dict[str, torch.Tensor]:
+        """Layer ``i``'s weights as its block uses them: ``in_proj`` split
+        into its x and z blocks (``wx``, ``wz``), the projections gathered over
+        their FSDP axes."""
+        p = layer_params(stacked, i)
+        p["wx"], p["wz"] = self._unpacked(p.pop("in_proj"), 2)
+        p["out_proj"] = self._gathered(p["out_proj"])
+        return p
+
+    def _in_proj(self, h, p):
+        """The layer's norm and input projection: (xi, z), each (B, S, DI)
+        laid out ("batch", None, "tp")."""
+        x = self._ws(L.rms_norm(h, p["norm"]), "batch", None, None)
+        return (self._ws(x @ p["wx"], "batch", None, "tp"),
+                self._ws(x @ p["wz"], "batch", None, "tp"))
+
+    def _out_proj(self, h, y, p):
+        out = self._ws(y @ p["out_proj"], "batch", None, None)
+        return self._ws(h + out, "batch", None, None)
+
     def _block_full(self, h, p):
         """One block over a full sequence: (h + out, (final SSM state, conv
         tail = the last K-1 PRE-conv inputs, what ``_conv_step`` consumes))."""
-        c = self.cfg
-        B = h.shape[0]
-        K = c.ssm.d_conv
-        x = L.rms_norm(h, p["norm"])
-        xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+        K = self.cfg.ssm.d_conv
+        xi, z = self._in_proj(h, p)
         conv_tail = xi[:, -(K - 1):, :] if K > 1 else xi[:, :0, :]
-        xi = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
-        dt, Bs, Cs = self._ssm_inputs(xi, p)
-        A = -torch.exp(p["A_log"].float())
-        h0 = torch.zeros((B, c.d_inner, c.ssm.d_state), dtype=torch.float32, device=h.device)
-        y, hN = self._selective_scan(xi.float(), dt, A, Bs, Cs, h0, c.ssm.chunk)
-        y = y + p["D"].float() * xi.float()
-        y = (y * F.silu(z.float())).to(h.dtype)
-        return h + y @ p["out_proj"], (hN, conv_tail)
+        y, hN = self._mixer(xi, z, p)
+        return self._out_proj(h, y, p), (hN, conv_tail)
+
+    def _head(self, params, h):
+        return self._ws(L.rms_norm(h, params["final_norm"]), "batch", None, None)
 
     # ------------------------------------------------------------------
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token CE; differentiable, as the reference's."""
-        h = params["embed"][batch["tokens"].long()]
+        h = self._embed_tokens(batch["tokens"], params["embed"])
         stacked = stacked_params(params)
         layer = L.remat(lambda h, p: self._block_full(h, p)[0], self.remat_policy)
         for i in L.layer_range(self.cfg.n_layers):
-            h = layer(h, layer_params(stacked, i))
-        h = L.rms_norm(h, params["final_norm"])
-        return L.chunked_cross_entropy(h, params["lm_head"], batch["labels"])
+            h = layer(h, self._weights(stacked, i))
+        return L.chunked_cross_entropy(self._head(params, h), self._gathered(params["lm_head"]),
+                                       batch["labels"])
 
     @torch.no_grad()
     def prefill(self, params, batch):
         """Forward + final recurrent state per layer (the SSM 'cache'):
-        (last-position logits (B, V) float32, {"ssm", "conv", "len"})."""
+        (last-position logits (B, V) float32, {"ssm", "conv", "len"}); on a
+        mesh laid out as ``cache_templates`` says."""
         S = batch["tokens"].shape[1]
-        h = params["embed"][batch["tokens"].long()]
+        h = self._embed_tokens(batch["tokens"], params["embed"])
         stacked = stacked_params(params)
         hs, tails = [], []
         for i in L.layer_range(self.cfg.n_layers):
-            h, (hN, tail) = self._block_full(h, layer_params(stacked, i))
+            h, (hN, tail) = self._block_full(h, self._weights(stacked, i))
             hs.append(hN)
             tails.append(tail)
-        h = L.rms_norm(h, params["final_norm"])
-        return logits_f32(h[:, -1], params["lm_head"]), {"ssm": torch.stack(hs),
-                                                       "conv": torch.stack(tails), "len": S}
+        h = self._head(params, h)
+        cache = {"ssm": self._ws(torch.stack(hs), None, "batch", "tp", None),
+                 "conv": self._ws(torch.stack(tails), None, "batch", None, "tp"), "len": S}
+        return logits_f32(h[:, -1], self._gathered(params["lm_head"])), cache
 
     @torch.no_grad()
     def decode_step(self, params, batch, cache):
         """One token against the O(1) state; returns (logits, new cache)."""
-        h = params["embed"][batch["tokens"].long()]           # (B,1,d)
+        h = self._embed_tokens(batch["tokens"], params["embed"])     # (B,1,d)
         stacked = stacked_params(params)
         hs, tails = [], []
         for i in L.layer_range(self.cfg.n_layers):
-            p = layer_params(stacked, i)
-            x = L.rms_norm(h, p["norm"])
-            xi, z = (x @ p["in_proj"])[:, 0].chunk(2, dim=-1)  # (B, DI)
-            xi, conv_state = _conv_step(xi, cache["conv"][i], p["conv_w"], p["conv_b"])
-            xi = F.silu(xi)
-            dt, Bs, Cs = (v[:, 0] for v in self._ssm_inputs(xi[:, None, :], p))
-            A = -torch.exp(p["A_log"].float())
-            xf = xi.float()
-            hst = (torch.exp(dt[..., None] * A) * cache["ssm"][i]
-                   + (dt * xf)[..., None] * Bs[:, None, :])
-            y = torch.einsum("bdn,bn->bd", hst, Cs) + p["D"].float() * xf
-            y = (y * F.silu(z.float())).to(h.dtype)
-            h = h + (y @ p["out_proj"])[:, None]
+            p = self._weights(stacked, i)
+            xi, z = (v[:, 0] for v in self._in_proj(h, p))            # (B, DI)
+            states = (self._ws(cache["conv"][i], "batch", None, "tp"),
+                      self._ws(cache["ssm"][i], "batch", "tp", None))
+            y, conv_state, hst = self._mixer(xi, z, p, states)
+            h = self._out_proj(h, y[:, None], p)
             hs.append(hst)
             tails.append(conv_state)
-        h = L.rms_norm(h, params["final_norm"])
-        return logits_f32(h[:, -1], params["lm_head"]), {
+        h = self._head(params, h)
+        return logits_f32(h[:, -1], self._gathered(params["lm_head"])), {
             "ssm": torch.stack(hs), "conv": torch.stack(tails), "len": int(cache["len"]) + 1}
 
     def cache_templates(self, batch: int, seq: int) -> Dict[str, ParamSpec]:
@@ -261,16 +340,18 @@ class MambaLM:
 # Mamba-2 / SSD + shared-attention hybrid (zamba2-2.7b)
 # ===========================================================================
 
-class Zamba2LM:
+class Zamba2LM(ModelBase):
     # cache entries the serving engine grows before decode: the shared
     # block's K/V; the SSM and conv states are O(1)
     GROWING_CACHE = ("attn_k", "attn_v")
+    # the weights of one Mamba-2 layer's conv, SSD and gated norm
+    MIXER = ("conv_x_w", "conv_x_b", "conv_bc_w", "conv_bc_b", "dt_bias", "A_log", "D",
+             "gated_norm")
 
-    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing"):
+    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing", *,
+                 mesh=None, rules=None):
         assert cfg.ssm is not None and cfg.ssm.version == 2
-        self.cfg = cfg
-        self.attn = check_attn(attn)
-        self.remat_policy = L.check_remat(remat_policy)
+        super().__init__(cfg, attn, remat_policy, mesh=mesh, rules=rules)
 
     @property
     def n_ssm_heads(self) -> int:
@@ -280,6 +361,15 @@ class Zamba2LM:
     def n_groups(self) -> int:
         assert self.cfg.n_layers % self.cfg.attn_every == 0
         return self.cfg.n_layers // self.cfg.attn_every
+
+    @property
+    def _heads(self):
+        """The logical axis of the SSD heads (and of d_inner, which they
+        split): "tp" where its axes divide the heads, else None (every rank
+        runs every head)."""
+        if self.sharded and safe_entry(self.mesh, self.rules, "tp", self.n_ssm_heads) is None:
+            return None
+        return "tp"
 
     def param_templates(self) -> Dict[str, ParamSpec]:
         c = self.cfg
@@ -324,11 +414,6 @@ class Zamba2LM:
         t.update({f"blocks.{k}": v for k, v in blk.items()})
         return t
 
-    def param_count(self) -> int:
-        return count_params(self.param_templates())
-
-    active_param_count = param_count
-
     # ------------------------------------------------------------------
     # SSD (Mamba-2) chunked scan — matmul formulation
     # ------------------------------------------------------------------
@@ -349,11 +434,13 @@ class Zamba2LM:
             M = Lmask.masked_fill(~tri[None, :, :, None], float("-inf")).exp()
             M = M * CB[..., None] * dtch[:, None, :, :]           # × dt_j
             y = torch.einsum("bijp,bjph->biph", M, xch)
-            # inter-chunk: contribution of the carried state
-            y = y + torch.einsum("bin,bpnh,bip->biph", Cch, h, torch.exp(s))
+            # inter-chunk: contribution of the carried state (the products
+            # in a fixed order: einsum's own order, and so its FLOPs, would
+            # change with the number of heads a rank holds)
+            y = y + torch.einsum("bin,bpnh->biph", Cch, h) * torch.exp(s)[..., None]
             # state update
             decay_to_end = torch.exp(s[:, -1:, :] - s)            # (B,c,P)
-            S_chunk = torch.einsum("bjp,bjn,bjph->bpnh", decay_to_end * dtch, Bch, xch)
+            S_chunk = torch.einsum("bjn,bjph->bpnh", Bch, xch * (decay_to_end * dtch)[..., None])
             return torch.exp(s[:, -1, :])[:, :, None, None] * h + S_chunk, y
 
         chunk_body = L.remat(chunk_body, self.remat_policy)
@@ -363,130 +450,208 @@ class Zamba2LM:
             ys.append(y)
         return torch.cat(ys, dim=1), h
 
-    def _mamba_inputs(self, x_conv, bcdt_conv, p):
-        """Split conv'd streams into SSD inputs (f32)."""
-        B_, S, _ = x_conv.shape
-        x = x_conv.float().reshape(B_, S, self.n_ssm_heads, self.cfg.ssm.head_dim)
-        Bs, Cs = bcdt_conv.float().chunk(2, dim=-1)
+    def _mamba_inputs(self, x_conv, bc_conv):
+        """Split conv'd streams into SSD inputs (f32): x (B, S, heads, hd),
+        Bs, Cs (B, S, N)."""
+        B_, S, C = x_conv.shape
+        hd = self.cfg.ssm.head_dim
+        x = x_conv.float().reshape(B_, S, C // hd, hd)
+        Bs, Cs = bc_conv.float().chunk(2, dim=-1)
         return x, Bs, Cs
 
-    def _mamba_block(self, h, p, h0=None, conv_states=None, single_step=False):
-        """One Mamba-2 block: (h + out, final SSM state, conv states). Over a
-        full sequence the conv states returned are the last K-1 PRE-conv
-        inputs of the x and BC streams (the reference recomputes them in its
-        prefill); in a single step, the updated states."""
+    def _mixer(self, xi, z, bc, dt_in, p, states=None):
+        """Conv, SSD, gate and gated norm of one Mamba-2 layer. xi, z (B, S,
+        DI) laid out ("batch", None, heads); bc (B, S, 2N) and dt_in (B, S, P)
+        whole on the model axis. On a mesh one ``local_map`` over each rank's
+        own SSD heads: each takes its heads' slice of dt_in, A_log, D and
+        dt_bias, runs the (c × c) C·Bᵀ whole, and the gated norm's mean over
+        d_inner adds the ranks' sums. Over a full sequence (``states`` None):
+        (y (B, S, DI), final SSM state (B, heads, N, hd)); one step
+        (``states`` = (conv x state, conv BC state, SSM state)): (y (B, 1,
+        DI), conv x state, conv BC state, SSM state)."""
         c = self.cfg
-        N, K, DI = c.ssm.d_state, c.ssm.d_conv, c.d_inner
-        B_ = h.shape[0]
-        x = L.rms_norm(h, p["norm"])
-        xi, z = (x @ p["in_proj_xz"]).chunk(2, dim=-1)
-        bc, dt_in = torch.split(x @ p["in_proj_bcdt"], [2 * N, self.n_ssm_heads], dim=-1)
-        A = -torch.exp(p["A_log"])
-        if single_step:
-            cx, cbc = conv_states
-            xi1, cx = _conv_step(xi[:, 0], cx, p["conv_x_w"], p["conv_x_b"])
-            bc1, cbc = _conv_step(bc[:, 0], cbc, p["conv_bc_w"], p["conv_bc_b"])
-            xs, Bs, Cs = self._mamba_inputs(F.silu(xi1)[:, None], F.silu(bc1)[:, None], p)
-            dt = F.softplus(dt_in[:, 0].float() + p["dt_bias"])            # (B,P)
+        hd, DI = c.ssm.head_dim, c.d_inner
+        sums = self._cut_dims(xi, -1)
+        lo = 0
+        if self.sharded and sums:
+            from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+            lo = compute_local_shape_and_global_offset(xi.shape, self.mesh,
+                                                       xi.placements)[1][-1] // hd
+
+        def sum_over(t):
+            return L.mesh_sum(t, self.mesh, sums)
+
+        def gate(y, xs, z, D, gated_norm, heads):
+            y = y + D[heads][:, None] * xs                                  # (B,S,P,hd)
+            B_, S_ = y.shape[:2]
+            y = y.reshape(B_, S_, -1) * F.silu(z.float()[:, :S_])
+            return _gated_norm(y.to(z.dtype), gated_norm, sum_over, DI)
+
+        def full(xi, z, bc, dt_in, conv_x_w, conv_x_b, conv_bc_w, conv_bc_b, dt_bias, A_log,
+                 D, gated_norm):
+            heads = slice(lo, lo + xi.shape[-1] // hd)
+            xc = F.silu(_causal_conv(xi, conv_x_w, conv_x_b))
+            bcc = F.silu(_causal_conv(bc, conv_bc_w, conv_bc_b))
+            xs, Bs, Cs = self._mamba_inputs(xc, bcc)
+            dt = F.softplus(dt_in[..., heads].float() + dt_bias[heads])
+            h0 = torch.zeros((xs.shape[0], xs.shape[2], c.ssm.d_state, hd), dtype=torch.float32,
+                             device=xs.device)
+            y, hN = self._ssd(xs, dt, -torch.exp(A_log[heads]), Bs, Cs, h0, c.ssm.chunk)
+            return gate(y, xs, z, D, gated_norm, heads), hN
+
+        def step(xi, z, bc, dt_in, cx, cbc, h0, conv_x_w, conv_x_b, conv_bc_w, conv_bc_b,
+                 dt_bias, A_log, D, gated_norm):
+            heads = slice(lo, lo + xi.shape[-1] // hd)
+            xi1, cx = _conv_step(xi[:, 0], cx, conv_x_w, conv_x_b)
+            bc1, cbc = _conv_step(bc[:, 0], cbc, conv_bc_w, conv_bc_b)
+            xs, Bs, Cs = self._mamba_inputs(F.silu(xi1)[:, None], F.silu(bc1)[:, None])
+            dt = F.softplus(dt_in[:, 0, heads].float() + dt_bias[heads])     # (B,P)
+            A = -torch.exp(A_log[heads])
             hN = (torch.exp(dt * A)[:, :, None, None] * h0
                   + torch.einsum("bp,bn,bph->bpnh", dt, Bs[:, 0], xs[:, 0]))
             y = torch.einsum("bn,bpnh->bph", Cs[:, 0], hN)[:, None]        # (B,1,P,hd)
-            new_conv = (cx, cbc)
-        else:
+            return gate(y, xs, z, D, gated_norm, heads), cx, cbc, hN
+
+        w = [p[k] for k in self.MIXER]
+        if states is None:
+            out = None
+            if self.sharded:
+                out = (xi.placements, self._placements(
+                    ("batch", self._heads, None, None),
+                    (xi.shape[0], self.n_ssm_heads, 1, 1)))
+            return self._split(full, xi, out, xi, z, bc, dt_in, *w)
+        out = None
+        if self.sharded:
+            out = (xi.placements,) + tuple(s.placements for s in states)
+        return self._split(step, xi, out, xi, z, bc, dt_in, *states, *w)
+
+    def _mamba_block(self, h, p, states=None):
+        """One Mamba-2 block: (h + out, final SSM state, conv states). Over a
+        full sequence (``states`` None) the conv states returned are the last
+        K-1 PRE-conv inputs of the x and BC streams (the reference recomputes
+        them in its prefill); in one step (``states`` = (conv x, conv BC,
+        SSM)), the updated states."""
+        c = self.cfg
+        N, K = c.ssm.d_state, c.ssm.d_conv
+        x = self._ws(L.rms_norm(h, p["norm"]), "batch", None, None)
+        xi = self._ws(x @ p["wx"], "batch", None, self._heads)
+        z = self._ws(x @ p["wz"], "batch", None, self._heads)
+        bc, dt_in = torch.split(x @ p["in_proj_bcdt"], [2 * N, self.n_ssm_heads], dim=-1)
+        if states is None:
             new_conv = (xi[:, -(K - 1):, :], bc[:, -(K - 1):, :])
-            xi = F.silu(_causal_conv(xi, p["conv_x_w"], p["conv_x_b"]))
-            bc = F.silu(_causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"]))
-            xs, Bs, Cs = self._mamba_inputs(xi, bc, p)
-            dt = F.softplus(dt_in.float() + p["dt_bias"])
-            if h0 is None:
-                h0 = torch.zeros((B_, self.n_ssm_heads, N, c.ssm.head_dim), dtype=torch.float32,
-                                 device=h.device)
-            y, hN = self._ssd(xs, dt, A, Bs, Cs, h0, c.ssm.chunk)
-        y = y + p["D"][:, None] * xs                                        # (B,S,P,hd)
-        S_ = y.shape[1]
-        y = y.reshape(B_, S_, DI) * F.silu(z.float()[:, :S_])
-        y = L.rms_norm(y.to(h.dtype), p["gated_norm"])
-        return h + y @ p["out_proj"], hN, new_conv
+            y, hN = self._mixer(xi, z, bc, dt_in, p)
+        else:
+            y, cx, cbc, hN = self._mixer(xi, z, bc, dt_in, p, states)
+            new_conv = (cx, cbc)
+        out = self._ws(y @ p["out_proj"], "batch", None, None)
+        return self._ws(h + out, "batch", None, None), hN, new_conv
+
+    def _weights(self, stacked, i: int) -> Dict[str, torch.Tensor]:
+        """Layer ``i``'s weights as its block uses them: ``in_proj_xz`` split
+        into its x and z blocks (``wx``, ``wz``), the projections gathered
+        over their FSDP axes."""
+        p = layer_params(stacked, i)
+        p["wx"], p["wz"] = self._unpacked(p.pop("in_proj_xz"), 2)
+        for k in ("in_proj_bcdt", "out_proj"):
+            p[k] = self._gathered(p[k])
+        return p
 
     # ------------------------------------------------------------------
-    def _shared_attn(self, h, params, positions, cache=None, t=None):
-        """The shared transformer block. Full-seq when cache is None; else
-        one-token decode against this invocation's cache, written in place."""
+    def _shared(self, params) -> Dict[str, torch.Tensor]:
+        """The shared block's weights, gathered over their FSDP axes once for
+        all its invocations of a pass: one all-gather each, and in the
+        backward pass one reduce-scatter of their summed gradients."""
+        return {k.split(".", 1)[1]: self._gathered(v) for k, v in params.items()
+                if k.startswith("shared.")}
+
+    def _shared_attn(self, h, sp, positions, cache=None, t=None, i=None):
+        """The shared transformer block (``sp``: its weights, ``_shared``).
+        Full-seq when cache is None: (h, (k, v)); else one-token decode
+        against invocation ``i``'s slice of the caches (n_groups, B, S, Kv,
+        hd), written in place at ``t``: (h, None)."""
         c = self.cfg
-        x = L.rms_norm(h, params["shared.attn_norm"])
-        B, S = x.shape[:2]
-        q = (x @ params["shared.wq"]).reshape(B, S, c.n_heads, c.hd)
-        k = (x @ params["shared.wk"]).reshape(B, S, c.n_kv_heads, c.hd)
-        v = (x @ params["shared.wv"]).reshape(B, S, c.n_kv_heads, c.hd)
-        q = L.apply_rope(q, positions, c.rope_theta)
-        k = L.apply_rope(k, positions, c.rope_theta)
+        x = self._ws(L.rms_norm(h, sp["attn_norm"]), "batch", None, None)
+        q, k, v = self._qkv(x, sp, positions)
         if cache is None:
-            kH, vH = L.repeat_kv(k, c.n_heads), L.repeat_kv(v, c.n_heads)
-            if self.attn == "flash":
-                attn = flash_attention(q, kH, vH, causal=True)
-            else:
-                attn = L.attention(q, kH, vH, causal=True)
+            kH = self._ws(L.repeat_kv(k, c.n_heads), "batch", None, "tp", None)
+            vH = self._ws(L.repeat_kv(v, c.n_heads), "batch", None, "tp", None)
+            attn = self._attend(q, kH, vH, causal=True)
             new_cache = (k, v)
         else:
             k_cache, v_cache = cache
-            k_cache[:, t:t + 1] = k.to(k_cache.dtype)
-            v_cache[:, t:t + 1] = v.to(v_cache.dtype)
-            kH, vH = L.repeat_kv(k_cache, c.n_heads), L.repeat_kv(v_cache, c.n_heads)
-            attn = L.attention(q, kH, vH, causal=True, q_offset=t)
-            new_cache = (k_cache, v_cache)
-        h = h + attn.reshape(B, S, -1) @ params["shared.wo"]
-        x = L.rms_norm(h, params["shared.mlp_norm"])
-        h = h + L.swiglu(x, params["shared.w_gate"], params["shared.w_up"], params["shared.w_down"])
+            self._write_kv(k_cache, i, t, k)
+            self._write_kv(v_cache, i, t, v)
+            attn = self._decode_attend(q, k_cache[i], v_cache[i], t + 1)[:, None]
+            new_cache = None
+        h = h + self._ws(self._merge_heads(attn) @ sp["wo"], "batch", None, None)
+        x = self._ws(L.rms_norm(h, sp["mlp_norm"]), "batch", None, None)
+        h = h + self._ws(L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"]), "batch", None, None)
         return h, new_cache
 
-    # ------------------------------------------------------------------
-    def _split_groups(self, params) -> List[List[Dict[str, torch.Tensor]]]:
-        """Per group of ``attn_every`` Mamba layers, each layer's parameters."""
+    def _layers(self):
+        """The layer loop (``layers.layer_range``): ("mamba", i) for each
+        Mamba layer, then ("shared", g) after each group g, with
+        ``layers.LAYER`` holding g while the shared block runs."""
         g = self.cfg.attn_every
-        stacked = stacked_params(params)
-        return [[layer_params(stacked, i * g + j) for j in range(g)] for i in range(self.n_groups)]
+        for li in L.layer_range(self.cfg.n_layers):
+            yield "mamba", li
+            if (li + 1) % g == 0:
+                L.LAYER.set(li // g)
+                yield "shared", li // g
 
     @staticmethod
     def _positions(B: int, S: int, device, offset: int = 0) -> torch.Tensor:
         return (torch.arange(S, device=device)[None, :] + offset).expand(B, S)
 
+    def _head(self, params, h):
+        return self._ws(L.rms_norm(h, params["final_norm"]), "batch", None, None)
+
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token CE; differentiable (with ``attn="plain"``: the flash
         kernel is forward-only)."""
         B, S = batch["tokens"].shape
-        h = params["embed"][batch["tokens"].long()]
-        positions = self._positions(B, S, h.device)
+        h = self._embed_tokens(batch["tokens"], params["embed"])
+        positions = self._positions(B, S, batch["tokens"].device)
+        stacked, sp = stacked_params(params), self._shared(params)
         layer = L.remat(lambda h, p: self._mamba_block(h, p)[0], self.remat_policy)
-        for grp in self._split_groups(params):
-            for p in grp:
-                h = layer(h, p)
-            h, _ = self._shared_attn(h, params, positions)
-        h = L.rms_norm(h, params["final_norm"])
-        return L.chunked_cross_entropy(h, params["lm_head"], batch["labels"])
+        for kind, i in self._layers():
+            if kind == "mamba":
+                h = layer(h, self._weights(stacked, i))
+            else:
+                h, _ = self._shared_attn(h, sp, positions)
+        return L.chunked_cross_entropy(self._head(params, h), self._gathered(params["lm_head"]),
+                                       batch["labels"])
 
     @torch.no_grad()
     def prefill(self, params, batch):
         """(last-position logits (B, V) float32, cache {"ssm", "conv_x",
         "conv_bc": per layer; "attn_k", "attn_v": (n_groups, B, S, Kv, hd);
-        "len": S})."""
+        "len": S}); on a mesh laid out as ``cache_templates`` says."""
         B, S = batch["tokens"].shape
-        h = params["embed"][batch["tokens"].long()]
-        positions = self._positions(B, S, h.device)
+        h = self._embed_tokens(batch["tokens"], params["embed"])
+        positions = self._positions(B, S, batch["tokens"].device)
+        stacked, sp = stacked_params(params), self._shared(params)
         ssm, conv_x, conv_bc, attn_k, attn_v = [], [], [], [], []
-        for grp in self._split_groups(params):
-            for p in grp:
-                h, hN, (tx, tbc) = self._mamba_block(h, p)
+        for kind, i in self._layers():
+            if kind == "mamba":
+                h, hN, (tx, tbc) = self._mamba_block(h, self._weights(stacked, i))
                 ssm.append(hN)
                 conv_x.append(tx)
                 conv_bc.append(tbc)
-            h, (k, v) = self._shared_attn(h, params, positions)
-            attn_k.append(k)
-            attn_v.append(v)
-        h = L.rms_norm(h, params["final_norm"])
-        cache = {"ssm": torch.stack(ssm), "conv_x": torch.stack(conv_x),
-                 "conv_bc": torch.stack(conv_bc), "attn_k": torch.stack(attn_k),
-                 "attn_v": torch.stack(attn_v), "len": S}
-        return logits_f32(h[:, -1], params["lm_head"]), cache
+            else:
+                h, (k, v) = self._shared_attn(h, sp, positions)
+                attn_k.append(self._ws(k, "batch", "sp", None, None))
+                attn_v.append(self._ws(v, "batch", "sp", None, None))
+        h = self._head(params, h)
+        heads = self._heads
+        cache = {"ssm": self._ws(torch.stack(ssm), None, "batch", heads, None, None),
+                 "conv_x": self._ws(torch.stack(conv_x), None, "batch", None, heads),
+                 "conv_bc": self._ws(torch.stack(conv_bc), None, "batch", None, None),
+                 "attn_k": self._ws(torch.stack(attn_k), None, "batch", "sp", None, None),
+                 "attn_v": self._ws(torch.stack(attn_v), None, "batch", "sp", None, None),
+                 "len": S}
+        return logits_f32(h[:, -1], self._gathered(params["lm_head"])), cache
 
     @torch.no_grad()
     def decode_step(self, params, batch, cache):
@@ -495,25 +660,27 @@ class Zamba2LM:
         states and ``len`` advanced)."""
         B = batch["tokens"].shape[0]
         t = int(cache["len"])
-        h = params["embed"][batch["tokens"].long()]   # (B,1,d)
-        positions = torch.full((B, 1), t, dtype=torch.int64, device=h.device)
-        g = self.cfg.attn_every
+        h = self._embed_tokens(batch["tokens"], params["embed"])     # (B,1,d)
+        positions = torch.full((B, 1), t, dtype=torch.int64, device=batch["tokens"].device)
+        stacked, sp = stacked_params(params), self._shared(params)
+        heads = self._heads
         ssm, conv_x, conv_bc = [], [], []
-        for i, grp in enumerate(self._split_groups(params)):
-            for j, p in enumerate(grp):
-                li = i * g + j
-                h, hN, (cx, cbc) = self._mamba_block(
-                    h, p, h0=cache["ssm"][li],
-                    conv_states=(cache["conv_x"][li], cache["conv_bc"][li]), single_step=True)
-                ssm.append(hN)
-                conv_x.append(cx)
-                conv_bc.append(cbc)
-            h, _ = self._shared_attn(h, params, positions,
-                                     cache=(cache["attn_k"][i], cache["attn_v"][i]), t=t)
-        h = L.rms_norm(h, params["final_norm"])
+        for kind, i in self._layers():
+            if kind == "shared":
+                h, _ = self._shared_attn(h, sp, positions, (cache["attn_k"], cache["attn_v"]),
+                                         t, i)
+                continue
+            states = (self._ws(cache["conv_x"][i], "batch", None, heads),
+                      self._ws(cache["conv_bc"][i], "batch", None, None),
+                      self._ws(cache["ssm"][i], "batch", heads, None, None))
+            h, hN, (cx, cbc) = self._mamba_block(h, self._weights(stacked, i), states)
+            ssm.append(hN)
+            conv_x.append(cx)
+            conv_bc.append(cbc)
+        h = self._head(params, h)
         cache = dict(cache, ssm=torch.stack(ssm), conv_x=torch.stack(conv_x),
                      conv_bc=torch.stack(conv_bc), len=t + 1)
-        return logits_f32(h[:, -1], params["lm_head"]), cache
+        return logits_f32(h[:, -1], self._gathered(params["lm_head"])), cache
 
     def cache_templates(self, batch: int, seq: int) -> Dict[str, ParamSpec]:
         c = self.cfg

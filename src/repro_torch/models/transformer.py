@@ -24,8 +24,9 @@ returns a new array.
 On a mesh (``mesh`` and ``rules`` given) the parameters and inputs are
 DTensors laid out by the rules (``models.api.param_shardings`` /
 ``input_shardings``) and the model is the reference's GSPMD program written
-out: each layer's weights are gathered over their FSDP axes where the layer
-uses them (the backward pass reduce-scatters their gradients), the
+out (with the helpers every family shares, ``models.base.ModelBase``):
+each layer's weights are gathered over their FSDP axes where the layer uses
+them (the backward pass reduce-scatters their gradients), the
 reference's ``with_sharding_constraint`` points are ``redistribute`` calls
 (``_ws``), RoPE and attention run under ``local_map`` on each rank's own
 batch rows and heads (the flash kernel included), MoE dispatches one group
@@ -46,65 +47,17 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.sharding.rules import (ParamSpec, PartitionSpec, axis_sizes, named_sharding,
-                                        safe_entry, spec_placements)
+from repro_torch.models.base import ModelBase, logits_f32, stacked_params
+from repro_torch.sharding.rules import ParamSpec
 
-__all__ = ["TransformerLM", "ATTN_IMPLS", "check_attn", "stacked_params", "layer_params",
-           "count_params", "logits_f32"]
-
-ATTN_IMPLS = ("flash", "plain")
+__all__ = ["TransformerLM"]
 
 
-# helpers shared by the model families (ssm.py and whisper.py import them)
-
-def check_attn(attn: str) -> str:
-    """``attn`` if it names a full-sequence attention: the kernel or plain."""
-    if attn not in ATTN_IMPLS:
-        raise ValueError(f"attn must be one of {ATTN_IMPLS}, got {attn!r}")
-    return attn
-
-
-def stacked_params(params, prefix: str = "blocks.") -> Dict[str, torch.Tensor]:
-    """The tensors under ``prefix`` (stacked on a leading layer dim), keyed
-    without it."""
-    return {k.split(".", 1)[1]: v for k, v in params.items() if k.startswith(prefix)}
-
-
-def layer_params(stacked: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    return {k: v[i] for k, v in stacked.items()}
-
-
-def count_params(templates: Dict[str, ParamSpec]) -> int:
-    n = 0
-    for spec in templates.values():
-        c = 1
-        for s in spec.shape:
-            c *= s
-        n += c
-    return n
-
-
-def logits_f32(h_last: torch.Tensor, w_vocab: torch.Tensor) -> torch.Tensor:
-    """float32 logits of the last position's hidden state (B, d) -> (B, V)."""
-    return h_last.float() @ w_vocab.float()
-
-
-class TransformerLM:
+class TransformerLM(ModelBase):
     # cache entries the serving engine grows before decode
     GROWING_CACHE = ("k", "v")
-
-    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing", *,
-                 mesh=None, rules=None):
-        self.cfg = cfg
-        self.attn = check_attn(attn)
-        self.remat_policy = L.check_remat(remat_policy)
-        self.mesh = mesh
-        self.rules = rules
 
     # ------------------------------------------------------------------
     # Parameter templates
@@ -148,9 +101,6 @@ class TransformerLM:
         t.update({f"blocks.{k}": v for k, v in blk.items()})
         return t
 
-    def param_count(self) -> int:
-        return count_params(self.param_templates())
-
     def active_param_count(self) -> int:
         c = self.cfg
         if c.moe is None:
@@ -167,111 +117,8 @@ class TransformerLM:
         return n
 
     # ------------------------------------------------------------------
-    # Sharding helpers
-    # ------------------------------------------------------------------
-    @property
-    def sharded(self) -> bool:
-        return self.mesh is not None and self.rules is not None
-
-    def _ws(self, x, *axes):
-        """``x`` laid out as ``axes`` (the reference's
-        ``with_sharding_constraint``): a ``redistribute`` on the mesh."""
-        if not self.sharded:
-            return x
-        return L.redistribute(x, self.mesh, named_sharding(self.mesh, axes, self.rules,
-                                                           x.shape).placements)
-
-    def _dp_degree(self) -> int:
-        """Data-parallel shards: the product of the batch axes' sizes."""
-        if not self.sharded:
-            return 1
-        sizes = axis_sizes(self.mesh)
-        n = 1
-        for a in self.rules.batch:
-            n *= sizes.get(a, 1)
-        return n
-
-    def _gathered(self, w):
-        """Weight ``w`` gathered over its FSDP axes (the backward pass
-        reduce-scatters its gradient); as it is off the mesh."""
-        if not self.sharded:
-            return w
-        from torch.distributed.tensor import Replicate
-
-        return w.redistribute(self.mesh, [Replicate() if a in self.rules.fsdp else pl
-                                          for a, pl in zip(self.mesh.mesh_dim_names,
-                                                           w.placements)])
-
-    def _layer(self, stacked, i: int) -> Dict[str, torch.Tensor]:
-        """Layer ``i``'s weights, gathered over their FSDP axes on a mesh."""
-        return {k: self._gathered(w) for k, w in layer_params(stacked, i).items()}
-
-    def _local(self, fn, placements, *args):
-        """``fn`` on each rank's own pieces of ``args``, all laid out as
-        ``placements`` (DTensor's ``local_map``); plain ``fn`` off the mesh."""
-        if not self.sharded:
-            return fn(*args)
-        from torch.distributed.tensor.experimental import local_map
-
-        # a single output's placements go as a list (a tuple would list outputs)
-        return local_map(fn, out_placements=list(placements),
-                         in_placements=(placements,) * len(args),
-                         device_mesh=self.mesh, redistribute_inputs=True)(*args)
-
-    # ------------------------------------------------------------------
     # Blocks
     # ------------------------------------------------------------------
-    def _qkv(self, x, p, positions, positions3=None):
-        """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Kv,hd) with RoPE applied."""
-        c = self.cfg
-        B, S, _ = x.shape
-        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-        if c.qkv_bias:
-            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-        q = self._split_heads(q, c.n_heads)
-        k = self._split_heads(k, c.n_kv_heads)
-        v = self._split_heads(v, c.n_kv_heads)
-        return self._rope(q, positions, positions3), self._rope(k, positions, positions3), v
-
-    def _split_heads(self, x, n: int):
-        """(B, S, n·hd) -> (B, S, n, hd), laid out ("batch", None, "tp", None).
-        On a mesh whose tp axes do not divide n the heads are gathered first:
-        DTensor splits a sharded dim only where the shards hold whole heads."""
-        B, S = x.shape[:2]
-        if self.sharded and safe_entry(self.mesh, self.rules, "tp", n) is None:
-            x = self._ws(x, "batch", None, None)
-        return self._ws(x.reshape(B, S, n, self.cfg.hd), "batch", None, "tp", None)
-
-    def _rope(self, x, positions, positions3):
-        """RoPE (M-RoPE for the VLM) of x (B, S, heads, hd); on a mesh each
-        rank rotates its own rows and heads."""
-        c = self.cfg
-
-        def rope(x, pos, pos3):
-            if c.mrope:
-                return L.apply_mrope(x, pos3, c.rope_theta)
-            return L.apply_rope(x, pos, c.rope_theta, c.rope_pct)
-
-        if not self.sharded:
-            return rope(x, positions, positions3)
-        from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
-        from torch.distributed.tensor.experimental import local_map
-
-        def placed(t, batch_dim):
-            # t's batch dim split as x's is, every other dim whole
-            if t is None:
-                return None, None
-            pl = [Shard(batch_dim) if p == Shard(0) else Replicate() for p in x.placements]
-            if isinstance(t, DTensor):
-                return t.redistribute(self.mesh, pl), pl
-            return distribute_tensor(t, self.mesh, pl, src_data_rank=None), pl
-
-        pos, pos_pl = placed(positions, 0)
-        pos3, pos3_pl = placed(positions3, 1)
-        return local_map(rope, out_placements=list(x.placements),
-                         in_placements=(x.placements, pos_pl, pos3_pl),
-                         device_mesh=self.mesh)(x, pos, pos3)
-
     def _mlp(self, x, p):
         c = self.cfg
         if c.moe is not None:
@@ -279,46 +126,6 @@ class TransformerLM:
                                top_k=c.moe.top_k, capacity_factor=c.moe.capacity_factor,
                                n_groups=self._dp_degree())
         return L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), torch.zeros((), device=x.device)
-
-    def _attend(self, q, kH, vH, causal: bool):
-        """Full-sequence attention, the kernel or plain. On a mesh each rank
-        attends over its own batch rows and its own heads; where the tp axes
-        do not divide the heads (qwen2's 28 on 16) the plain attention splits
-        the query rows over the sp axes instead (K and V whole on every rank,
-        each rank's rows at their global offset), so no rank repeats
-        another's work. The flash kernel has no query offset: there it runs
-        on every head of the rank's rows."""
-        c = self.cfg
-
-        def attend(q, k, v, q_offset=0):
-            if self.attn == "flash":
-                return flash_attention(q, k, v, causal=causal, window=c.swa_window)
-            return L.attention(q, k, v, causal=causal, q_offset=q_offset, window=c.swa_window,
-                               score_dtype=getattr(torch, c.attn_score_dtype),
-                               chunk_q=c.attn_chunk_q, chunk_kv=c.attn_chunk_kv)
-
-        if not self.sharded:
-            return attend(q, kH, vH)
-        B, S, H = q.shape[:3]
-        rows = safe_entry(self.mesh, self.rules, "sp", S)
-        if (safe_entry(self.mesh, self.rules, "tp", H) is not None or self.attn == "flash"
-                or rows is None):
-            pl = named_sharding(self.mesh, ("batch", None, "tp", None), self.rules,
-                                q.shape).placements
-            return self._local(attend, pl, q, kH, vH)
-        from torch.distributed.tensor import Partial, Shard
-        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-        from torch.distributed.tensor.experimental import local_map
-
-        bentry = safe_entry(self.mesh, self.rules, "batch", B)
-        q_pl = spec_placements(self.mesh, PartitionSpec(bentry, rows, None, None))
-        kv_pl = spec_placements(self.mesh, PartitionSpec(bentry, None, None, None))
-        kv_grad = tuple(Partial() if p == Shard(1) else k for p, k in zip(q_pl, kv_pl))
-        offset = compute_local_shape_and_global_offset(q.shape, self.mesh, q_pl)[1][1]
-        return local_map(lambda q, k, v: attend(q, k, v, offset), out_placements=list(q_pl),
-                         in_placements=(q_pl, kv_pl, kv_pl),
-                         in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=self.mesh,
-                         redistribute_inputs=True)(q, kH, vH)
 
     def _block_full(self, h, p, positions, positions3, causal=True):
         """One transformer block over a full sequence. Returns (h, (k, v), aux)."""
@@ -336,8 +143,7 @@ class TransformerLM:
         # it so. The attention output is laid out before the projection so
         # that the backward pass hands its view a gradient it can split into
         # heads.
-        h = h + self._ws(self._ws(attn.reshape(B, S, -1), "batch", None, "tp") @ p["wo"],
-                         "batch", None, None)
+        h = h + self._ws(self._merge_heads(attn) @ p["wo"], "batch", None, None)
         x = self._ws(L.rms_norm(h, p["mlp_norm"]), "batch", None, None)
         mlp_out, aux = self._mlp(x, p)
         return h + self._ws(mlp_out, "batch", None, None), (k, v), aux
@@ -357,42 +163,10 @@ class TransformerLM:
     # ------------------------------------------------------------------
     def _embed(self, params, batch):
         """Token embedding (+ additive patch-embedding stub for the VLM)."""
-        h = self._lookup(batch["tokens"], params["embed"])
+        h = self._embed_tokens(batch["tokens"], params["embed"])
         if self.cfg.mrope and "patch_embeds" in batch:
-            h = h + batch["patch_embeds"].to(h.dtype)
-        return self._ws(h, "batch", None, None)
-
-    def _lookup(self, tokens, table):
-        """``F.embedding`` of the tokens. On a mesh the table is vocab-sharded:
-        each rank looks up the tokens that fall in its rows and zeroes the
-        rest, so the result is a partial sum over the vocab-cut mesh dims (no
-        collective; ``_ws`` then reduces it). Indexing instead would make
-        DTensor re-shard the whole table on every call; and DTensor's own
-        masked-partial rule for ``F.embedding`` fails in the backward pass
-        when the incoming gradient is a partial sum."""
-        if not self.sharded:
-            return F.embedding(tokens.long(), table)
-        from torch.distributed.tensor import Partial, Replicate, Shard
-        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-        from torch.distributed.tensor.experimental import local_map
-
-        rows, (lo, _) = compute_local_shape_and_global_offset(table.shape, self.mesh,
-                                                              table.placements)
-        n = rows[0]
-        batch = [p == Shard(0) for p in tokens.placements]
-        cut = [p == Shard(0) for p in table.placements]
-        out_pl = [Shard(0) if b else Partial() if c else Replicate() for b, c in zip(batch, cut)]
-        grad_pl = [Partial() if b else Shard(0) if c else Replicate() for b, c in zip(batch, cut)]
-
-        def lookup(tok, tab):
-            ids = tok.long() - lo
-            inside = (ids >= 0) & (ids < n)
-            return F.embedding(ids.clamp(0, n - 1), tab).masked_fill(~inside[..., None], 0)
-
-        return local_map(lookup, out_placements=out_pl,
-                         in_placements=(tokens.placements, table.placements),
-                         in_grad_placements=(tokens.placements, grad_pl),
-                         device_mesh=self.mesh)(tokens, table)
+            h = self._ws(h + batch["patch_embeds"].to(h.dtype), "batch", None, None)
+        return h
 
     def _positions(self, batch, B, S, offset=0):
         c = self.cfg
@@ -457,24 +231,6 @@ class TransformerLM:
                  "v": self._ws(torch.stack(vs), None, "batch", "sp", None, None), "len": S}
         return self._logits(params, h[:, -1]), cache
 
-    def _write_kv(self, cache, i: int, pos: int, new) -> None:
-        """``cache[i, :, pos] = new[:, 0]`` in place. On a mesh only the rank
-        that owns sequence position ``pos`` writes, into its own shard: a
-        DTensor ``index_put`` on the sharded dim would move the cache."""
-        if not self.sharded:
-            cache[i, :, pos] = new[:, 0].to(cache.dtype)
-            return
-        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
-        bentry = safe_entry(self.mesh, self.rules, "batch", new.shape[0])
-        new = new.redistribute(self.mesh, spec_placements(
-            self.mesh, PartitionSpec(bentry, None, None, None))).to_local()
-        shape, offset = compute_local_shape_and_global_offset(cache.shape, self.mesh,
-                                                              cache.placements)
-        lo = offset[2]
-        if lo <= pos < lo + shape[2]:
-            cache.to_local()[i, :, pos - lo] = new[:, 0].to(cache.dtype)
-
     @torch.no_grad()
     def decode_step(self, params, batch, cache):
         """One-token decode. batch: tokens (B, 1). cache: k/v (L, B, Smax, Kv, hd)
@@ -496,13 +252,6 @@ class TransformerLM:
         wpos = (t % Smax) if rolling else t
         valid_len = min(t + 1, Smax)
         window = 0 if rolling else c.swa_window
-        sp = self.sharded and axis_sizes(self.mesh).get("model", 1) > 1
-
-        def attend(q, kH, vH):
-            # query acts at index valid_len-1: cache entries < valid_len are
-            # visible, garbage beyond is masked (order within a rolled window
-            # is irrelevant to softmax)
-            return L.attention(q, kH, vH, causal=True, q_offset=valid_len - 1, window=window)
 
         for i in L.layer_range(c.n_layers):
             p = self._layer(stacked, i)
@@ -511,17 +260,10 @@ class TransformerLM:
             # in place, where the reference's dynamic_update_slice makes a new cache
             self._write_kv(k_all, i, wpos, k)
             self._write_kv(v_all, i, wpos, v)
-            if sp:
-                bentry = safe_entry(self.mesh, self.rules, "batch", B)
-                attn = L.decode_attention_sp(q[:, 0], k_all[i], v_all[i], valid_len,
-                                             mesh=self.mesh, sp_axis="model",
-                                             batch_axes=(bentry,), window=window)
-            else:
-                kH = L.repeat_kv(k_all[i], c.n_heads)
-                vH = L.repeat_kv(v_all[i], c.n_heads)
-                pl = (named_sharding(self.mesh, ("batch", None, None, None), self.rules,
-                                     q.shape).placements if self.sharded else None)
-                attn = self._local(attend, pl, q, kH, vH)[:, 0]
+            # the query acts at index valid_len-1: cache entries < valid_len
+            # are visible, garbage beyond is masked (order within a rolled
+            # window is irrelevant to softmax)
+            attn = self._decode_attend(q, k_all[i], v_all[i], valid_len, window=window)
             h = h + self._ws((attn.reshape(B, -1) @ p["wo"])[:, None], "batch", None, None)
             x = L.rms_norm(h, p["mlp_norm"])
             mlp_out, _ = self._mlp(x, p)

@@ -1,5 +1,5 @@
 # Port of src/repro/models/whisper.py: rewritten in PyTorch, names and layouts kept.
-"""Whisper-medium encoder-decoder backbone on one card.
+"""Whisper-medium encoder-decoder backbone, on one card or on a device mesh.
 
 As in the reference, the conv audio frontend is a stub: the batch carries
 precomputed frame embeddings ``frames`` (B, S_enc, d) in the activation dtype.
@@ -9,8 +9,7 @@ MLP), sinusoidal positions, logits tied to the decoder token embedding.
 
 What changes from the reference: ``lax.scan`` over stacked layers becomes a
 Python loop, each encoder and decoder layer wrapped by :func:`layers.remat`
-under ``remat_policy`` (the reference's ``jax.checkpoint``); the sharding
-constraints are dropped. ``attn="flash"``
+under ``remat_policy`` (the reference's ``jax.checkpoint``). ``attn="flash"``
 (the default) runs every full-sequence attention of ``loss`` and ``prefill``
 through :func:`repro_torch.kernels.flash_attention.flash_attention`: the
 encoder's bidirectional self attention, the decoder's causal self attention
@@ -24,6 +23,16 @@ fixed cross cache, as the reference model computes it. Only ``self_k`` and
 engine also pads the cross cache, whose zero keys then join the softmax, and
 that is not carried over. ``cache_templates`` is the reference's, cross
 entries sized by ``seq`` included.
+
+On a mesh (``mesh`` and ``rules``) the parameters and inputs are DTensors laid
+out by the reference's rules (``models.base``): the reference's
+``with_sharding_constraint`` points are ``_ws`` calls, each layer's weights are
+gathered over their FSDP axes, every attention (encoder, decoder self and
+cross) runs on each rank's own batch rows and heads under ``local_map`` (the
+flash kernel included), ``prefill`` returns its caches sequence-sharded, and
+decode on a model axis wider than one runs both of its attentions through
+:func:`layers.decode_attention_sp` (the cross attention over the cross
+cache's whole length).
 """
 
 from __future__ import annotations
@@ -32,11 +41,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (check_attn, count_params, layer_params, logits_f32,
-                                            stacked_params)
+from repro_torch.models.base import ModelBase, logits_f32, stacked_params
 from repro_torch.sharding.rules import ParamSpec
 
 __all__ = ["WhisperModel", "sinusoid_positions"]
@@ -52,15 +58,10 @@ def sinusoid_positions(S: int, d: int, offset: int = 0, device=None) -> torch.Te
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-class WhisperModel:
+class WhisperModel(ModelBase):
     # cache entries the serving engine grows before decode: the decoder's
     # self-attention K/V; the cross K/V stay the encoder's S_enc frames
     GROWING_CACHE = ("self_k", "self_v")
-
-    def __init__(self, cfg: ArchConfig, attn: str = "flash", remat_policy: str = "nothing"):
-        self.cfg = cfg
-        self.attn = check_attn(attn)
-        self.remat_policy = L.check_remat(remat_policy)
 
     def param_templates(self) -> Dict[str, ParamSpec]:
         c = self.cfg
@@ -104,70 +105,89 @@ class WhisperModel:
             t.update(grp)
         return t
 
-    def param_count(self) -> int:
-        return count_params(self.param_templates())
-
-    active_param_count = param_count
-
     # ------------------------------------------------------------------
+    def _heads(self, x, w):
+        """x @ w split into heads: (B, S, heads, hd), laid out ("batch", None,
+        "tp", None)."""
+        return self._split_heads(x @ w, w.shape[-1] // self.cfg.hd)
+
     def _mha(self, x, kv_src, p, prefix, causal):
         c = self.cfg
-        B, S, _ = x.shape
-        Skv = kv_src.shape[1]
-        q = (x @ p[f"{prefix}_wq"]).reshape(B, S, c.n_heads, c.hd)
-        k = (kv_src @ p[f"{prefix}_wk"]).reshape(B, Skv, c.n_kv_heads, c.hd)
-        v = (kv_src @ p[f"{prefix}_wv"]).reshape(B, Skv, c.n_kv_heads, c.hd)
-        kH, vH = L.repeat_kv(k, c.n_heads), L.repeat_kv(v, c.n_heads)
-        if self.attn == "flash":
-            attn = flash_attention(q, kH, vH, causal=causal)
-        else:
-            attn = L.attention(q, kH, vH, causal=causal,
-                               score_dtype=getattr(torch, c.attn_score_dtype))
-        return attn.reshape(B, S, -1) @ p[f"{prefix}_wo"], (k, v)
+        q = self._heads(x, p[f"{prefix}_wq"])
+        k = self._heads(kv_src, p[f"{prefix}_wk"])
+        v = self._heads(kv_src, p[f"{prefix}_wv"])
+        kH = self._ws(L.repeat_kv(k, c.n_heads), "batch", None, "tp", None)
+        vH = self._ws(L.repeat_kv(v, c.n_heads), "batch", None, "tp", None)
+        attn = self._attend(q, kH, vH, causal)
+        return self._out(attn, p[f"{prefix}_wo"]), (k, v)
 
-    @staticmethod
-    def _mlp(h, p):
-        x = L.layer_norm(h, p["mlp_norm"], p["mlp_norm_b"])
-        return h + L.gelu_mlp(x, p["mlp_w_in"], p["mlp_b_in"], p["mlp_w_out"], p["mlp_b_out"])
+    def _out(self, attn, wo):
+        """The attention output (B, S, H, hd) through ``wo``, reduced where it
+        is made."""
+        return self._ws(self._merge_heads(attn) @ wo, "batch", None, None)
+
+    def _norm(self, h, p, name):
+        return self._ws(L.layer_norm(h, p[f"{name}_norm"], p[f"{name}_norm_b"]),
+                        "batch", None, None)
+
+    def _mlp(self, h, p):
+        x = self._norm(h, p, "mlp")
+        o = self._ws(L.gelu_mlp(x, p["mlp_w_in"], p["mlp_b_in"], p["mlp_w_out"], None),
+                     "batch", None, None)
+        return h + (o + p["mlp_b_out"])
+
+    def _positions(self, S: int, dtype, device, offset: int = 0):
+        """Sinusoidal positions (1, S, d) in ``dtype``, replicated on a mesh."""
+        pos = sinusoid_positions(S, self.cfg.d_model, offset=offset, device=device)
+        return self._replicated(pos.to(dtype)[None])
 
     def _encoder(self, params, frames):
         """frames: (B, S_enc, d) precomputed conv-frontend embeddings."""
-        _, S, d = frames.shape
-        h = frames + sinusoid_positions(S, d, device=frames.device).to(frames.dtype)[None]
+        S = frames.shape[1]
+        h = self._ws(frames + self._positions(S, frames.dtype, frames.device),
+                     "batch", None, None)
         stacked = stacked_params(params, "enc.")
 
         def layer(h, p):
-            x = L.layer_norm(h, p["attn_norm"], p["attn_norm_b"])
+            x = self._norm(h, p, "attn")
             h = h + self._mha(x, x, p, "attn", causal=False)[0]
             return self._mlp(h, p)
 
         layer = L.remat(layer, self.remat_policy)
         for i in L.layer_range(self.cfg.n_layers):
-            h = layer(h, layer_params(stacked, i))
-        return L.layer_norm(h, params["enc_final_norm"], params["enc_final_bias"])
+            h = layer(h, self._layer(stacked, i))
+        return self._ws(L.layer_norm(h, params["enc_final_norm"], params["enc_final_bias"]),
+                        "batch", None, None)
 
-    def _decoder_full(self, params, tokens, enc_out):
+    def _decoder_full(self, params, tokens, enc_out, with_cache: bool = False):
+        """(final hidden states, and with ``with_cache`` the per-layer self
+        and cross K/V stacked (L, B, S, Kv, hd), laid out ("batch", "sp"))."""
         S = tokens.shape[1]
-        h = params["embed"][tokens.long()]
-        h = h + sinusoid_positions(S, self.cfg.d_model, device=h.device).to(h.dtype)[None]
+        h = self._embed_tokens(tokens, params["embed"])
+        h = h + self._positions(S, h.dtype, tokens.device)
         stacked = stacked_params(params, "dec.")
 
         def layer(h, p):
-            x = L.layer_norm(h, p["self_norm"], p["self_norm_b"])
+            x = self._norm(h, p, "self")
             a, (sk, sv) = self._mha(x, x, p, "self", causal=True)
             h = h + a
-            x = L.layer_norm(h, p["cross_norm"], p["cross_norm_b"])
+            x = self._norm(h, p, "cross")
             a, (ck, cv) = self._mha(x, enc_out, p, "cross", causal=False)
             return self._mlp(h + a, p), (sk, sv, ck, cv)
 
         layer = L.remat(layer, self.remat_policy)
         caches = ([], [], [], [])
         for i in L.layer_range(self.cfg.n_layers):
-            h, kv = layer(h, layer_params(stacked, i))
-            for lst, t in zip(caches, kv):
-                lst.append(t)
-        h = L.layer_norm(h, params["dec_final_norm"], params["dec_final_bias"])
-        return h, tuple(torch.stack(lst) for lst in caches)
+            h, kv = layer(h, self._layer(stacked, i))
+            if with_cache:
+                for lst, t in zip(caches, kv):
+                    lst.append(self._ws(t, "batch", "sp", None, None))
+        h = self._ws(L.layer_norm(h, params["dec_final_norm"], params["dec_final_bias"]),
+                     "batch", None, None)
+        if not with_cache:
+            return h, None
+        return h, tuple(self._ws(torch.stack(lst), None, "batch", "sp", None, None)
+                        for lst in caches)
 
     # ------------------------------------------------------------------
     def loss(self, params, batch) -> torch.Tensor:
@@ -182,9 +202,10 @@ class WhisperModel:
     def prefill(self, params, batch):
         """(last-position logits (B, V) float32, cache {"self_k", "self_v":
         (L, B, S_dec, Kv, hd); "cross_k", "cross_v": (L, B, S_enc, Kv, hd);
-        "len": S_dec})."""
+        "len": S_dec}); on a mesh every cache entry is sequence-sharded."""
         enc_out = self._encoder(params, batch["frames"])
-        h, (sk, sv, ck, cv) = self._decoder_full(params, batch["tokens"], enc_out)
+        h, (sk, sv, ck, cv) = self._decoder_full(params, batch["tokens"], enc_out,
+                                                 with_cache=True)
         cache = {"self_k": sk, "self_v": sv, "cross_k": ck, "cross_v": cv,
                  "len": batch["tokens"].shape[1]}
         return logits_f32(h[:, -1], params["embed"].T), cache
@@ -194,30 +215,25 @@ class WhisperModel:
         """One decoder token. cache: self_k/v (L,B,Smax,Kv,hd) growing, written
         in place at ``len``; cross_k/v (L,B,S_enc,Kv,hd) fixed."""
         c = self.cfg
-        B = batch["tokens"].shape[0]
         t = int(cache["len"])
-        h = params["embed"][batch["tokens"].long()]
-        h = h + sinusoid_positions(1, c.d_model, offset=t, device=h.device).to(h.dtype)[None]
+        h = self._embed_tokens(batch["tokens"], params["embed"])
+        h = h + self._positions(1, h.dtype, batch["tokens"].device, offset=t)
         stacked = stacked_params(params, "dec.")
         for i in L.layer_range(c.n_layers):
-            p = layer_params(stacked, i)
-            skc, svc = cache["self_k"][i], cache["self_v"][i]
-            ckc, cvc = cache["cross_k"][i], cache["cross_v"][i]
+            p = self._layer(stacked, i)
             # self attention against the growing cache
-            x = L.layer_norm(h, p["self_norm"], p["self_norm_b"])
-            q = (x @ p["self_wq"]).reshape(B, 1, c.n_heads, c.hd)
-            skc[:, t:t + 1] = (x @ p["self_wk"]).reshape(B, 1, c.n_kv_heads, c.hd).to(skc.dtype)
-            svc[:, t:t + 1] = (x @ p["self_wv"]).reshape(B, 1, c.n_kv_heads, c.hd).to(svc.dtype)
-            attn = L.attention(q, L.repeat_kv(skc, c.n_heads), L.repeat_kv(svc, c.n_heads),
-                               causal=True, q_offset=t)
-            h = h + attn.reshape(B, 1, -1) @ p["self_wo"]
-            # cross attention against the fixed encoder cache
-            x = L.layer_norm(h, p["cross_norm"], p["cross_norm_b"])
-            q = (x @ p["cross_wq"]).reshape(B, 1, c.n_heads, c.hd)
-            ca = L.attention(q, L.repeat_kv(ckc, c.n_heads), L.repeat_kv(cvc, c.n_heads),
-                             causal=False)
-            h = h + ca.reshape(B, 1, -1) @ p["cross_wo"]
-            h = self._mlp(h, p)
+            x = self._norm(h, p, "self")
+            q = self._heads(x, p["self_wq"])
+            self._write_kv(cache["self_k"], i, t, self._heads(x, p["self_wk"]))
+            self._write_kv(cache["self_v"], i, t, self._heads(x, p["self_wv"]))
+            attn = self._decode_attend(q, cache["self_k"][i], cache["self_v"][i], t + 1)
+            h = h + self._out(attn[:, None], p["self_wo"])
+            # cross attention against the fixed encoder cache, all of it
+            x = self._norm(h, p, "cross")
+            q = self._heads(x, p["cross_wq"])
+            ckc, cvc = cache["cross_k"][i], cache["cross_v"][i]
+            ca = self._decode_attend(q, ckc, cvc, ckc.shape[1], causal=False)
+            h = self._mlp(h + self._out(ca[:, None], p["cross_wo"]), p)
         h = L.layer_norm(h, params["dec_final_norm"], params["dec_final_bias"])
         return logits_f32(h[:, -1], params["embed"].T), dict(cache, len=t + 1)
 

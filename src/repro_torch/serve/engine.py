@@ -15,11 +15,12 @@ backend, the card by default), verify its content hash, parse the safetensors
 bytes in memory and move the parameters to the device. The engine runs on the
 card unless it is given ``device="cpu"``.
 
-With a device mesh (``mesh`` and ``rules``; the transformer family) the
-parameters are laid out by ``param_shardings``, each prompt batch by the
-batch axes, the cache by ``cache_shardings`` (sequence-sharded, so decode
-runs flash-decoding over the model axis); the logits are gathered whole
-before each greedy pick, so every rank picks the same tokens.
+With a device mesh (``mesh`` and ``rules``; any family) the parameters are
+laid out by ``param_shardings``, each prompt batch (Whisper's frames too) by
+the batch axes, the growing cache by ``cache_shardings`` (sequence-sharded,
+so decode runs flash-decoding over the model axis; the SSMs' O(1) states keep
+the layout the model gives them from step to step); the logits are gathered
+whole before each greedy pick, so every rank picks the same tokens.
 """
 
 from __future__ import annotations

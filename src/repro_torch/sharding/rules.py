@@ -34,6 +34,7 @@ reference does; DTensor's uneven sharding is never used.
 from __future__ import annotations
 
 import math
+import sys
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -45,9 +46,11 @@ __all__ = ["ShardingRules", "ParamSpec", "PartitionSpec", "NamedSharding", "logi
 
 
 def is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(x, DTensor)
+    """Whether ``x`` is a DTensor. No DTensor exists before its module is
+    imported, so code off the mesh never pays for that import (seconds on
+    first use)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def whole(x):

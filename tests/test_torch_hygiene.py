@@ -219,3 +219,31 @@ def test_flash_on_cuda_without_a_card_raises(tmp_path):
                           env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("raised: nvcc not found"), proc.stdout
+
+
+def test_off_the_mesh_nothing_imports_dtensor():
+    # the first import of torch.distributed.tensor takes seconds: serving off
+    # the mesh (every family's prefill and decode) must not pay for it on its
+    # first request (a fresh interpreter: other tests import it here; a
+    # differentiated loss imports it anyway, through torch.utils.checkpoint)
+    script = """
+import sys, torch
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.models import api
+from repro_torch.serve.engine import ServeEngine
+for arch in ("falcon-mamba-7b", "zamba2-2.7b", "whisper-medium", "mixtral-8x7b"):
+    cfg = get_config(arch, smoke=True)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = api.make_batch(cfg, ShapeCell("p", "prefill", 16, 2),
+                           torch.Generator().manual_seed(1), device="cpu")
+    eng = ServeEngine(cfg, params, device="cpu", attn="plain")
+    eng.generate(batch["tokens"].numpy(), 2,
+                 {"frames": batch["frames"]} if "frames" in batch else None)
+print("torch.distributed.tensor" in sys.modules)
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                       timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split()[-1] == "False"

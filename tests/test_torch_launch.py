@@ -258,20 +258,25 @@ def test_dryrun_writes_the_reference_record_for_a_smoke_cell(tmp_path):
 
 
 def test_dryrun_refuses_the_families_of_the_next_slice():
+    """Once refused, now built: ``all_cells("both")`` yields all 66 cells of
+    the ten archs, and ``build_step`` builds a falcon-mamba decode on a fake
+    (1, 2) mesh."""
     out = _py("""
     from repro_torch.launch import dryrun
-    try:
-        cfg, cell, mesh, rules, _ = dryrun.cell_setup("falcon-mamba-7b", "decode_32k", "single",
-                                                      smoke=True, mesh_shape=(1, 2))
-        dryrun.build_step(cfg, cell, mesh, rules)
-    except NotImplementedError as e:
-        print("refused:", e)
+    cfg, cell, mesh, rules, _ = dryrun.cell_setup("falcon-mamba-7b", "decode_32k", "single",
+                                                  smoke=True, mesh_shape=(1, 2))
+    fn, args, model = dryrun.build_step(cfg, cell, mesh, rules)
+    print("built:", type(model).__name__, model.mesh is mesh, sorted(args[2]))
     """)
-    assert "refused:" in out and "slice 10" in out
+    assert "built: MambaLM True ['conv', 'len', 'ssm']" in out
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.launch.dryrun import all_cells
-    archs = {a for a, _, _ in all_cells("both")}
-    assert archs == {"qwen2-vl-7b", "granite-20b", "phi4-mini-3.8b", "deepseek-coder-33b",
-                     "qwen2-7b", "mixtral-8x7b", "grok-1-314b"}
+    cells = list(all_cells("both"))
+    assert len(cells) == len(set(cells)) == 66
+    assert {a for a, _, _ in cells} == set(ARCH_IDS)
+    # long_500k only for the sub-quadratic archs, on both meshes
+    assert sorted(a for a, s, m in cells if s == "long_500k" and m == "single") == [
+        "falcon-mamba-7b", "mixtral-8x7b", "zamba2-2.7b"]
 
 
 def test_roofline_renders_a_record_with_h100_constants():

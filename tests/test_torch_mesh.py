@@ -46,6 +46,7 @@ from repro.optim.optimizers import AdamW as JAdamW, OptimizerConfig as JOptimize
 from repro.sharding import rules as jrules
 from repro.train.step import make_train_step as jax_make_train_step
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs.base import ShapeCell
 from repro_torch.launch.mesh import HW, make_local_mesh
 from repro_torch.models import api
 from repro_torch.models import layers as L
@@ -198,11 +199,27 @@ def test_production_mesh_constants_are_the_h100s():
 
 
 def test_ssm_and_whisper_refuse_a_mesh():
-    mesh = _mesh((1, 1), ("data", "model"))
-    for arch in ("falcon-mamba-7b", "zamba2-2.7b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            api.get_model(get_config(arch, smoke=True), mesh=mesh,
-                          rules=ShardingRules.for_mesh(mesh))
+    """Once refused, now built: ``get_model`` builds all ten archs on a (1, 1)
+    mesh (a one-rank gloo group in this process), every family keeping the
+    mesh, and the SSM and Whisper families' prefill there gives the one-device
+    logits bit for bit."""
+    mesh = make_local_mesh(1, 1, device_type="cpu")
+    rules = ShardingRules.for_mesh(mesh)
+    for arch in ARCH_IDS:
+        cfg = R._fp32(get_config(arch, smoke=True))
+        model = api.get_model(cfg, attn="plain", mesh=mesh, rules=rules)
+        assert model.mesh is mesh and model.rules == rules and model.sharded, arch
+        if cfg.family not in ("ssm", "hybrid", "encdec"):
+            continue
+        params = api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        batch = api.make_batch(cfg, ShapeCell("p", "prefill", 8, 2),
+                               torch.Generator().manual_seed(1), device="cpu")
+        want, _ = api.get_model(cfg, attn="plain").prefill(params, batch)
+        got, cache = model.prefill(api.distribute(params, api.param_shardings(cfg, mesh, rules)),
+                                   {k: api.distribute(v, api.input_shardings(
+                                       cfg, ShapeCell("p", "prefill", 8, 2), mesh, rules)[k])
+                                    for k, v in batch.items()})
+        assert torch.equal(got.full_tensor(), want), arch
 
 
 def test_mesh_needs_a_group_of_its_size_and_a_card_for_cuda():
