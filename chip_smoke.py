@@ -31,6 +31,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    card and counted by the hamming kernel, equal to the numpy host path tensor
    by tensor and file by file, beside the prefix distance the store's family
    matcher uses; two independent N(0, 0.02^2) bf16 embeddings lie above 4.5;
+4c. the store's lifecycle, on phase 4's store reopened from its index: first
+   the six shrunk churn sequences of tests/test_torch_compact.py (ingest,
+   re-upload, delete, gc, compact and reload of 3-tensor files under four
+   repo ids) through a store on the card, each live file held to its bytes,
+   fsck and the reload required to pass; then, at full width, ``churn``
+   takes C (the base with every tensor but the embedding and lm_head replaced
+   by fresh N(0, 1) bf16 from a seeded generator: stored standalone and bound
+   as a family base), the declared fine-tune is re-registered with every
+   third of those tensors taken from C (pinned in C's generation) and the
+   others moved from the base by N(0, 0.005^2) (BitX-coded against it), its
+   vocabulary tables its own, ``churn`` takes the base's exact bytes (a whole-file
+   dedup: C's generation is superseded, its binding stays), ``delete_repo``
+   drops the matched fine-tune, ``gc()`` and ``compact()`` run (compaction
+   moves the tensors of C the re-registration needs and retires C's
+   generation), and ``churn`` takes C again: its binding now names hashes
+   with no pool entry, and the store must code C standalone, never against
+   itself. ``fsck(spot_check=0)`` (the reference graph and structure) must
+   pass and, after ``save_index()`` and a reload, C and the re-registered
+   fine-tune must retrieve (at once, a thread each) with their sources'
+   sha256; all four store kernels must have launched. The retrieve of phase
+   4's re-upload and fsck's spot decodes are left out to keep the smoke in
+   its time limit. Printed: the bytes compaction moved and reclaimed, gc and compact seconds, ingest and
+   retrieve MB/s and the phase's kernel launches, beside the card's name and
+   power limit, and on a JSON line of their own (``lifecycle``);
 5. byte identity: a one-layer family (no embeddings) ingested by a CUDA store
    and a numpy store of the port writes byte-identical containers;
 6. calibration: the Monte-Carlo heatmap of E[D(w, w+delta)] (paper Fig. 11,
@@ -130,8 +154,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (``route_launches``), logits within phase 3's bf16 tolerance of the
    unsharded prefill's. 11b the dry run at published width and depth,
    ``python -m repro_torch.launch.dryrun`` as child processes all at once
-   on the card's host, after 11c (CPU only; a fake process group of 256 or
-   512 ranks): qwen2-7b ``train_4k`` on the single-pod mesh, mixtral-8x7b
+   on the card's host, started before phase 9 and collected after 11c (CPU
+   only; a fake process group of 256 or 512 ranks): qwen2-7b ``train_4k`` on the single-pod mesh, mixtral-8x7b
    ``decode_32k`` and (phase 12's) zamba2-2.7b ``long_500k`` on the multi-pod
    mesh, each record's per-device FLOPs,
    bytes, collective bytes by kind, peak GiB, H100 roofline row and host
@@ -171,9 +195,9 @@ causal) and at S 2048, beside their bound, the plain version and
 ``torch.nn.functional.scaled_dot_product_attention``, with the wrapper's host
 time per call.
 
-The last lines are the hub server's line, the families line, the train line,
-the mesh line, the mesh families line, the card's name and power limit, the kernels line (one JSON
-object) and the result line
+The last lines are the lifecycle line, the hub server's line, the families
+line, the train line, the mesh line, the mesh families line, the card's name
+and power limit, the kernels line (one JSON object) and the result line
 ``{"ok": true, "device": {...}}``. Model files and stores go to a temporary
 directory outside the repository, removed at the end.
 """
@@ -213,7 +237,7 @@ from repro_torch.core.bitx import TorchBackend  # noqa: E402
 from repro_torch.core.pipeline import ZLLMStore  # noqa: E402
 from repro_torch.corpus import CorpusSpec, make_base_tensors, make_finetune, write_repo  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, PrefetchIterator, SyntheticTokens  # noqa: E402
-from repro_torch.formats.safetensors import SafetensorsFile  # noqa: E402
+from repro_torch.formats.safetensors import SafetensorsFile, save_file  # noqa: E402
 from repro_torch.kernels import _build, bitx_xor, byte_planes, hamming, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -730,6 +754,7 @@ def phase_store(tmp: str, seed: int) -> dict:
         c_all = backend.counters()
         peak = torch.cuda.max_memory_allocated()
         summary = store.summary()
+        store.save_index()  # phase 4c reopens this store
     finally:
         store.close()
 
@@ -829,6 +854,296 @@ def phase_bitdistance(tmp: str, seed: int) -> int:
     log(f"bitdistance: two independent N(0, 0.02^2) {V}x{d} bf16 embeddings at {cross!r} bits "
         f"(> 4.5); phase {time.perf_counter() - t0:.1f} s, hamming launches {launches}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the store's lifecycle at Qwen2-7B width, on phase 4's store
+# ---------------------------------------------------------------------------
+
+CHURN_REPO = "churn"
+# shrunk sequences of tests/test_compact.py's churn harness that re-upload a
+# file after gc or compaction retired its family base (tests/test_torch_compact.py)
+CHURN_SEQUENCES = ((0, 1, 8, 112, 0), (0, 0, 1, 8, 112, 0), (0, 0, 1, 8, 116, 0),
+                   (0, 0, 74, 115570, 160, 74), (0, 0, 362811, 3, 112, 362811),
+                   (0, 0, 688394, 938982, 68, 688394))
+CHURN_TENSORS, CHURN_ELEMS = 3, 64  # the harness's file: 3 float32 tensors of 64
+# C keeps the base's vocabulary tables (70% of the file at 2 layers): the
+# ZipNN lane codes each of them in one single-threaded entropy job, about 40 s
+# a table on the card's host, twice in the phase, which the smoke's time cannot
+# hold; the re-registration keeps the fine-tune's own tables for the same reason
+VOCAB_TABLES = ("model.embed_tokens.weight", "lm_head.weight")
+# fsck after the churn checks the reference graph and structure only: its
+# default spot check decodes each container's first 4 payload records, the
+# full-width vocabulary tables among them, which takes about as long as a
+# retrieve; the two retrieves after the reload decode every record the churn
+# wrote or compaction moved
+LIFECYCLE_SPOT_CHECK = 0
+
+
+def churn_sequence(ops, root: str) -> None:
+    """One op sequence of the churn harness (``_churn``, tests/test_compact.py)
+    through a store on the card: each op ingests fresh or partly re-drawn
+    content under one of four repo ids, uploads another live repo's exact
+    bytes, deletes a repo, or runs gc or compact; every live file must then
+    retrieve byte for byte, fsck must pass, and so must a reload."""
+    rids = ["r0", "r1", "r2", "r3"]
+    store = ZLLMStore(os.path.join(root, "store"))
+    oracle, content, seq = {}, {}, 0
+
+    def draw(seed):
+        return np.random.RandomState(seed).randn(CHURN_ELEMS).astype(np.float32)
+
+    def upload(rid, data):
+        nonlocal seq
+        seq += 1
+        p = os.path.join(root, "hub", f"u{seq}", "model.safetensors")
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        with open(p, "wb") as f:
+            f.write(data)
+        store.ingest_file(p, rid)
+        oracle[rid] = data
+
+    def check(rid):
+        if store.retrieve_file(rid, "model.safetensors") != oracle[rid]:
+            raise AssertionError(f"churn {list(ops)}: {rid} does not retrieve its bytes")
+
+    try:
+        for op in ops:
+            rid = rids[op % len(rids)]
+            kind = (op // len(rids)) % 6
+            if kind == 0 or (kind == 1 and rid not in content):
+                tensors = {f"t{i}": draw(op * 7 + i) for i in range(CHURN_TENSORS)}
+            elif kind == 1:
+                tensors = dict(content[rid])
+                for i in range(CHURN_TENSORS):
+                    if (op >> (4 + i)) & 1:
+                        tensors[f"t{i}"] = draw(op * 13 + i)
+            elif kind == 2:
+                src = next((r for r in rids if r in oracle and r != rid), None)
+                if src is not None:
+                    upload(rid, oracle[src])
+                    content[rid] = dict(content[src])
+                continue
+            elif kind == 3:
+                if rid in oracle:
+                    store.delete_repo(rid)
+                    del oracle[rid], content[rid]
+                continue
+            elif kind == 4:
+                if op % 2:
+                    store.gc()
+                else:
+                    store.gc(incremental=True, max_pause_ms=0.5, persist=False)
+                continue
+            else:
+                store.compact(persist=False)
+                continue
+            p = os.path.join(root, "staged.safetensors")
+            save_file(tensors, p)
+            with open(p, "rb") as f:
+                upload(rid, f.read())
+            content[rid] = tensors
+            check(sorted(oracle)[op % len(oracle)])
+        for rid in oracle:
+            check(rid)
+        report = store.fsck(spot_check=None)
+        if not report.ok:
+            raise AssertionError(f"churn {list(ops)}: fsck {report.dangling} {report.corrupt}")
+        store.save_index()
+    finally:
+        store.close()
+    store = ZLLMStore(os.path.join(root, "store"))
+    try:
+        if not store.load_index():
+            raise AssertionError(f"churn {list(ops)}: the index did not reload")
+        for rid in oracle:
+            check(rid)
+        if not store.fsck(spot_check=None).ok:
+            raise AssertionError(f"churn {list(ops)}: fsck after the reload")
+    finally:
+        store.close()
+
+
+def random_copy(src_dir: str, dst_dir: str, replace: dict) -> str:
+    """The ``chain_copy`` recipe (benchmarks/common.py:22) on the port: a copy
+    of the repo at ``src_dir``, model card and config included, whose
+    ``model.safetensors`` has the tensors named in ``replace`` swapped for the
+    given uint16 bit views of bf16 tensors of the same shape."""
+    shutil.copytree(src_dir, dst_dir, ignore=shutil.ignore_patterns("model.safetensors"))
+    with SafetensorsFile(os.path.join(src_dir, "model.safetensors")) as sf:
+        save_file({ti.name: replace.get(ti.name, sf.tensor(ti.name)) for ti in sf.infos},
+                  os.path.join(dst_dir, "model.safetensors"),
+                  dtype_tags={ti.name: ti.dtype_str for ti in sf.infos})
+    return dst_dir
+
+
+def random_bf16(shape, gen: torch.Generator) -> np.ndarray:
+    """Fresh N(0, 1) bf16 of ``shape``, drawn on the card, as a host bit view."""
+    t = torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+    return t.view(torch.int16).cpu().numpy().view(np.uint16)
+
+
+def perturbed_bf16(bits: np.ndarray, sigma: float, gen: torch.Generator) -> np.ndarray:
+    """The bf16 tensor of host bit view ``bits`` moved by N(0, sigma^2) in
+    float32 on the card and rounded back, as ``make_finetune`` moves a tensor."""
+    t = torch.from_numpy(np.array(bits).view(np.int16)).to(DEVICE).view(torch.bfloat16)
+    noise = torch.randn(t.shape, generator=gen, device=DEVICE) * sigma
+    return (t.float() + noise).to(torch.bfloat16).view(torch.int16).cpu().numpy().view(np.uint16)
+
+
+def phase_lifecycle(tmp: str, seed: int, smi: str) -> dict:
+    """Re-registration, whole-file re-upload, delete_repo, gc, compact, fsck and
+    a reload on phase 4's store, with a repo re-uploaded after compaction
+    retired the generation its family base was bound to. Returns the numbers
+    and the kernel launches of the full-width steps."""
+    hub = os.path.join(tmp, "hub")
+    base_id, ft_a, ft_b, reup = UPLOADS
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for n, ops in enumerate(CHURN_SEQUENCES):
+        churn_sequence(ops, os.path.join(tmp, "churn-sequences", str(n)))
+    seq_launches = _build.launch_counts()
+    shutil.rmtree(os.path.join(tmp, "churn-sequences"), ignore_errors=True)
+    log(f"lifecycle: the {len(CHURN_SEQUENCES)} shrunk churn sequences of tests/test_torch_compact.py "
+        f"ran on a store on the card in {time.perf_counter() - t0:.1f} s: every live file "
+        f"retrieved byte for byte, fsck ok, reload ok; kernel launches {seq_launches}")
+
+    # C: the base with every tensor but the vocabulary tables replaced (far
+    # from it in bit distance); the declared fine-tune re-registered with every
+    # third of those tensors taken from C and the others moved from the base by
+    # N(0, sigma_delta^2), as make_finetune moves them (BitX-coded against it)
+    spec = CorpusSpec(n_layers=SMOKE_LAYERS, **QWEN2_7B)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 4)
+    t0 = time.perf_counter()
+    with SafetensorsFile(os.path.join(hub, base_id, "model.safetensors")) as sf:
+        infos = list(sf.infos)
+        layers = [ti.name for ti in infos if ti.name not in VOCAB_TABLES]
+        fresh = {name: random_bf16(sf.info(name).shape, gen) for name in layers}
+        taken = layers[::3]
+        moved_from_base = {name: perturbed_bf16(sf.tensor(name), spec.sigma_delta, gen)
+                           for name in layers if name not in taken}
+        n_bitx = sum(not np.array_equal(v, sf.tensor(name)) for name, v in moved_from_base.items())
+    c_dir = random_copy(os.path.join(hub, base_id), os.path.join(hub, "churn-c"), fresh)
+    ft2_dir = random_copy(os.path.join(hub, ft_a), os.path.join(hub, "ft-declared-v2"),
+                          {**{name: fresh[name] for name in taken}, **moved_from_base})
+    del fresh, moved_from_base
+    kept, moved = len(infos) - len(layers), len(taken)
+    file_bytes = os.path.getsize(os.path.join(c_dir, "model.safetensors"))
+    want = {CHURN_REPO: sha256_file(os.path.join(c_dir, "model.safetensors")),
+            ft_a: sha256_file(os.path.join(ft2_dir, "model.safetensors"))}
+    log(f"lifecycle: wrote C ({len(infos)} tensors, {file_bytes / 1e9:.3f} GB: {len(layers)} "
+        f"fresh N(0, 1) bf16, the base's {' and '.join(VOCAB_TABLES)} kept) and a "
+        f"re-registration of {ft_a} ({moved} tensors from C, {len(layers) - moved} moved from "
+        f"the base by N(0, {spec.sigma_delta}^2), its own vocabulary tables) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    store = ZLLMStore(os.path.join(tmp, "store"), workers=min(16, os.cpu_count() or 1),
+                      entropy_procs=0)
+    seconds = {}
+
+    def timed(label, fn):
+        t = time.perf_counter()
+        r = fn()
+        seconds[label] = time.perf_counter() - t
+        return r
+
+    try:
+        if not store.load_index():
+            raise AssertionError("phase 4's store has no index to reload")
+        backend = store.backend
+        if backend.name != "torch" or backend.device.type != DEVICE:
+            raise AssertionError(f"reopened store backend is {backend.name} on {backend.device}")
+        base_key = f"{CHURN_REPO}/model.safetensors"
+        # the main path: counts from 0 just before, read just after
+        _build.reset_launch_counts()
+        backend.reset_counters()
+        r1 = timed("ingest C", lambda: store.ingest_repo(c_dir, CHURN_REPO)[0])
+        if not (r1.base_id is None and r1.n_zipnn == len(layers) and r1.n_dedup == kept
+                and CHURN_REPO in store.base_paths):
+            raise AssertionError(f"C was not stored standalone and bound as a family base: {r1}")
+        r2 = timed("re-register", lambda: store.ingest_repo(ft2_dir, ft_a)[0])
+        if not (r2.base_id == base_id and r2.n_bitx == n_bitx
+                and r2.n_dedup == len(infos) - n_bitx
+                and store.file_index[f"{ft_a}/model.safetensors"]["gen"] == 1):
+            raise AssertionError(f"{ft_a} re-registered as {r2}, not a new generation of "
+                                 f"{n_bitx} BitX records against {base_id} and dedups")
+        r3 = timed("whole-file re-upload", lambda: store.ingest_repo(
+            os.path.join(hub, base_id), CHURN_REPO)[0])
+        if not r3.file_dedup_hit or base_key not in store.base_key_of.values():
+            raise AssertionError(f"{CHURN_REPO} taking {base_id}'s bytes: {r3}")
+        store.delete_repo(ft_b)
+        gc = timed("gc", store.gc)
+        compact = timed("compact", store.compact)
+        if not (gc["collected"] == 1 and compact["retired_versions"] == 1
+                and compact["moved_records"] == moved):
+            raise AssertionError(f"gc {gc}, compact {compact}: C's generation was not compacted")
+        if not any(h not in store.tensor_locations
+                   for *_, h in store._base_tensor_map(CHURN_REPO).values()):
+            raise AssertionError("the binding of C outlived none of C's pool entries")
+        # the fault of the reference: C again, with the binding to C stale
+        r5 = timed("ingest C again", lambda: store.ingest_repo(c_dir, CHURN_REPO)[0])
+        if not (r5.base_id is None and r5.n_bitx == 0 and r5.n_dedup == moved + kept):
+            raise AssertionError(f"C re-uploaded after compaction as {r5}")
+        report = timed("fsck", lambda: store.fsck(spot_check=LIFECYCLE_SPOT_CHECK))
+        if not report.ok:
+            raise AssertionError(f"fsck: dangling {report.dangling}, corrupt {report.corrupt}")
+        store.save_index()
+        c_ingest = backend.counters()
+    finally:
+        store.close()
+    store = ZLLMStore(os.path.join(tmp, "store"), workers=min(16, os.cpu_count() or 1),
+                      backend=TorchBackend(device=DEVICE), entropy_procs=0)
+
+    both = "retrieve C and the fine-tune after the reload"
+
+    def retrieve(rid):
+        t = time.perf_counter()
+        got = hashlib.sha256(store.retrieve_file(rid, "model.safetensors")).hexdigest()
+        return got, time.perf_counter() - t
+
+    try:
+        if not store.load_index():
+            raise AssertionError("the lifecycle's index did not reload")
+        # C and the re-registered fine-tune (its BitX records, and the records
+        # of C that compaction moved) retrieved at once, each by its own thread
+        with concurrent.futures.ThreadPoolExecutor(len(want)) as pool:
+            got = timed(both,
+                        lambda: dict(zip(want, pool.map(retrieve, want))))
+        for rid, (sha, sec) in got.items():
+            if sha != want[rid]:
+                raise AssertionError(f"{rid} retrieved with sha256 {sha}, source {want[rid]}")
+            seconds[f"retrieve {rid}"] = sec
+        c_reload = store.backend.counters()
+    finally:
+        store.close()
+    launches = _build.launch_counts()
+    for name in TorchBackend.KERNELS:
+        if not launches.get(name):
+            raise AssertionError(f"lifecycle: the {name} kernel was not launched ({launches})")
+    mbs = {k: (2 if k == both else 1) * file_bytes / seconds[k] / 1e6
+           for k in seconds if k not in ("gc", "compact", "fsck")}
+    out = {"card": smi, "file_bytes": file_bytes, "seconds": {k: round(v, 3) for k, v in seconds.items()},
+           "mb_per_s": {k: round(v, 1) for k, v in mbs.items()},
+           "gc": gc, "compact": compact, "launches": launches, "sequence_launches": seq_launches,
+           "kernel_calls": {"before reload": c_ingest["kernel_calls"],
+                            "after reload": c_reload["kernel_calls"]}}
+    log(f"lifecycle: C stored standalone; {ft_a} re-registered as generation 1 ({r2.n_bitx} BitX "
+        f"records against {base_id}, {r2.n_dedup} dedups); {CHURN_REPO} took {base_id}'s bytes "
+        f"(file dedup); {ft_b} deleted; gc collected {gc['collected']} versions "
+        f"({gc['reclaimed_bytes']} B); compact moved {compact['moved_records']} records "
+        f"({compact['moved_bytes']} B), retired {compact['retired_versions']} versions, reclaimed "
+        f"{compact['reclaimed_bytes']} B ({compact['net_reclaimed_bytes']} B net); C re-uploaded "
+        f"with its binding stale: standalone, {r5.n_dedup} dedups, no BitX record against "
+        f"itself; fsck ok (reference graph and structure; no spot decodes); C and {ft_a} "
+        f"retrieved with their sources' sha256 after save_index and a reload. Left out to keep "
+        f"the smoke in its time limit: the retrieve of {reup} (phase 4 retrieved it, and its "
+        f"generation is anchored, so compaction never moves it) and fsck's spot decodes (the "
+        f"two retrieves decode every record the churn wrote or compaction moved)")
+    log("lifecycle: " + "; ".join(f"{k} {seconds[k]:.2f} s" + (f" ({mbs[k]:.1f} MB/s)" if k in mbs else "")
+                                  for k in seconds)
+        + f"; kernel launches {launches}; phase {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2281,35 +2596,62 @@ DRYRUN_CELLS = (("qwen2-7b", "train_4k", "single"), ("mixtral-8x7b", "decode_32k
 DRYRUN_S = 300                   # each must end within this
 
 
-def phase_dryruns(smi: str) -> list:
-    """11b: the cells of ``DRYRUN_CELLS``, each dry-run by ``python -m
-    repro_torch.launch.dryrun`` in a process of its own, all at once; each
-    record and its H100 roofline row."""
-    from repro_torch.launch.roofline import roofline_row
-
+def start_dryruns() -> dict:
+    """Start 11b's cells of ``DRYRUN_CELLS``, each dry-run by ``python -m
+    repro_torch.launch.dryrun`` in a process of its own on the host's CPU, all
+    at once; ``phase_dryruns`` collects them and ``stop_dryruns`` ends them."""
     here = Path(__file__).resolve().parent
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     env["PYTHONPATH"] = os.pathsep.join(
         [str(here / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    out_dir = tempfile.mkdtemp(prefix="zllm-chip-smoke-dryrun-")
-    names = [f"{arch}__{shape}__{mesh}" for arch, shape, mesh in DRYRUN_CELLS]
-    procs, ended = [], {}
+    runs = {"out_dir": tempfile.mkdtemp(prefix="zllm-chip-smoke-dryrun-"), "procs": [],
+            "waiters": [], "ended": {}, "t0": time.perf_counter(),
+            "names": [f"{arch}__{shape}__{mesh}" for arch, shape, mesh in DRYRUN_CELLS]}
+
+    def wait(n: int, proc: subprocess.Popen) -> None:
+        proc.wait()
+        runs["ended"][n] = time.perf_counter() - runs["t0"]
+
     try:
-        t0 = time.perf_counter()
-        for (arch, shape, mesh), name in zip(DRYRUN_CELLS, names):
+        for n, ((arch, shape, mesh), name) in enumerate(zip(DRYRUN_CELLS, runs["names"])):
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                   "--shape", shape, "--mesh", mesh, "--out", out_dir]
-            with open(os.path.join(out_dir, f"{name}.log"), "w") as log_file:
-                procs.append(subprocess.Popen(cmd, env=env, cwd=str(here), stdout=log_file,
-                                              stderr=subprocess.STDOUT))
-        while len(ended) < len(procs):
-            for n, proc in enumerate(procs):
-                if n not in ended and proc.poll() is not None:
-                    ended[n] = time.perf_counter() - t0
-            if time.perf_counter() - t0 > DRYRUN_S:
-                late = [names[n] for n in range(len(procs)) if n not in ended]
-                raise AssertionError(f"mesh: the dry runs {late} outlived {DRYRUN_S} s")
-            time.sleep(0.1)
+                   "--shape", shape, "--mesh", mesh, "--out", runs["out_dir"]]
+            with open(os.path.join(runs["out_dir"], f"{name}.log"), "w") as log_file:
+                proc = subprocess.Popen(cmd, env=env, cwd=str(here), stdout=log_file,
+                                        stderr=subprocess.STDOUT)
+            runs["procs"].append(proc)
+            waiter = threading.Thread(target=wait, args=(n, proc), daemon=True)
+            waiter.start()
+            runs["waiters"].append(waiter)
+    except BaseException:
+        stop_dryruns(runs)
+        raise
+    return runs
+
+
+def stop_dryruns(runs: dict) -> None:
+    """Kill any dry run still running and remove their output."""
+    for proc in runs["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(runs["out_dir"], ignore_errors=True)
+
+
+def phase_dryruns(smi: str, runs: dict | None = None) -> list:
+    """11b: wait for the dry runs that ``start_dryruns`` started (started here
+    when ``runs`` is None); each record and its H100 roofline row."""
+    from repro_torch.launch.roofline import roofline_row
+
+    if runs is None:
+        runs = start_dryruns()
+    procs, names, ended, out_dir = runs["procs"], runs["names"], runs["ended"], runs["out_dir"]
+    try:
+        for waiter in runs["waiters"]:
+            waiter.join(max(0.0, runs["t0"] + DRYRUN_S - time.perf_counter()))
+        late = [names[n] for n in range(len(procs)) if n not in ended]
+        if late:
+            raise AssertionError(f"mesh: the dry runs {late} outlived {DRYRUN_S} s")
         out = []
         for n, ((arch, shape, mesh), name) in enumerate(zip(DRYRUN_CELLS, names)):
             if procs[n].returncode != 0:
@@ -2340,11 +2682,7 @@ def phase_dryruns(smi: str) -> list:
                 f"process {ended[n]:.1f} s on the host; card: {smi}")
         return out
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(out_dir, ignore_errors=True)
+        stop_dryruns(runs)
 
 
 def _mesh_trainers(tmp: str, seed: int):
@@ -2371,10 +2709,10 @@ def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) / scale
 
 
-def phase_mesh(tmp: str, seed: int, smi: str) -> dict:
+def phase_mesh(tmp: str, seed: int, smi: str, dryruns: dict | None = None) -> dict:
     """Phase 11: 11a the trainer on a (1, 1) mesh against the unsharded one,
     step for step, and a prefill on that mesh through the flash kernel; 11b
-    the dry-run cells; 11c one step of the unsharded cell counted by
+    the dry-run cells (those ``dryruns`` started, else started here); 11c one step of the unsharded cell counted by
     ``op_cost`` against its closed form and the clock."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -2494,7 +2832,7 @@ def phase_mesh(tmp: str, seed: int, smi: str) -> dict:
                 f"{n} {v:.4e}" for n, v in rows))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    dry = phase_dryruns(smi)
+    dry = phase_dryruns(smi, dryruns)
     out = {"card": smi, "steps": steps, "bit_equal": bit_equal, "max_rel_err": worst,
            "step_ms_median": ms_one, "step_ms_median_mesh": ms_mesh,
            "mesh_param_bytes": mesh_params_bytes,
@@ -2720,6 +3058,7 @@ def main() -> int:
     try:
         launches = phase_store(tmp, SEED)
         launches["hamming"] = phase_bitdistance(tmp, SEED)
+        lifecycle = phase_lifecycle(tmp, SEED, smi)
         shutil.rmtree(os.path.join(tmp, "hub"))
         shutil.rmtree(os.path.join(tmp, "store"))
         phase_identity(tmp, SEED)
@@ -2734,22 +3073,27 @@ def main() -> int:
         log(f"hub: phase 8 took {time.perf_counter() - t8:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-families-")
+    # 11b's dry runs hold the host's CPU only: they run beside phases 9 and 10
+    dryruns = start_dryruns()
     try:
-        families = phase_families(tmp, SEED, smi)
+        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-families-")
+        try:
+            families = phase_families(tmp, SEED, smi)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-train-")
+        try:
+            train = phase_train(tmp, SEED, smi)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-mesh-")
+        try:
+            mesh = phase_mesh(tmp, SEED, smi, dryruns)
+            mesh_families = phase_mesh_families(tmp, SEED, smi)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-train-")
-    try:
-        train = phase_train(tmp, SEED, smi)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-mesh-")
-    try:
-        mesh = phase_mesh(tmp, SEED, smi)
-        mesh_families = phase_mesh_families(tmp, SEED, smi)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        stop_dryruns(dryruns)
     # no path of the JAX package calls xor_2d: its count is phase 3's
     launches["xor"] = report["xor"]["launches"]
     log(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -2757,10 +3101,12 @@ def main() -> int:
     launched_by = {"hamming": "phases 4b and 6 (bit distance, calibration)",
                    "xor": "phase 3 (kernel checks): no path of the JAX package calls xor_2d"}
     by_phase = {}
-    for name in TorchBackend.KERNELS:  # the store kernels: phase 4's and phase 10's checkpoints
-        by_phase[name] = {"4": launches[name], "10": train["launches"][name]}
-        launches[name] += train["launches"][name]
-        launched_by[name] = "phases 4 (store) and 10a (training checkpoints and their restore)"
+    for name in TorchBackend.KERNELS:  # the store kernels: phases 4, 4c and 10's checkpoints
+        by_phase[name] = {"4": launches[name], "4c": lifecycle["launches"][name],
+                          "10": train["launches"][name]}
+        launches[name] += lifecycle["launches"][name] + train["launches"][name]
+        launched_by[name] = ("phases 4 (store), 4c (the store's lifecycle) and 10a (training "
+                             "checkpoints and their restore)")
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
         r = report[name]
@@ -2824,6 +3170,7 @@ def main() -> int:
             "library": FLASH_LIBRARY, **extra,
             **build_info.get(row["instance"], {}), "card": smi,
         })
+    print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"hub_server": hub}))
     print(json.dumps({"families": families}))
     print(json.dumps({"train": train}))

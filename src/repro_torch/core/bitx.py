@@ -1,5 +1,6 @@
-# Port copy of src/repro/core/bitx.py: containers and NumpyBackend unchanged; the
-# JaxBackend section is replaced by TorchBackend and get_backend("torch"|"numpy").
+# Port copy of src/repro/core/bitx.py: containers, NumpyBackend and the deprecated
+# *_np shims unchanged (bar the shims' removal notice); the JaxBackend section
+# is replaced by TorchBackend and get_backend("torch"|"numpy").
 """BitX lossless delta compression (paper §4.3).
 
 Encode: align the floats of a fine-tuned tensor with its base tensor in
@@ -37,6 +38,7 @@ import mmap
 import os
 import struct
 import threading
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Protocol, Sequence, Tuple
 
@@ -58,6 +60,9 @@ __all__ = [
     "TMP_SUFFIX",
     "TorchBackend",
     "get_backend",
+    "xor_delta_planes_np",
+    "merge_planes_xor_np",
+    "byte_planes_np",
 ]
 
 MAGIC = b"BITX0001"
@@ -424,6 +429,36 @@ def get_backend(spec="torch") -> ArrayBackend:
         return NumpyBackend()
     raise ValueError(f"unknown array backend {spec!r} "
                      f"(expected 'torch', 'numpy' or an ArrayBackend instance)")
+
+
+# ---------------------------------------------------------------------------
+# Deprecated free-function aliases, kept for parity with the reference's API:
+# the host transforms, which array math now reaches through an ArrayBackend.
+# ---------------------------------------------------------------------------
+
+def _warn_shim(old: str, new: str) -> None:
+    warnings.warn(
+        f"repro_torch.core.bitx.{old} is deprecated; use "
+        f"repro_torch.core.bitx.get_backend(...).{new} instead",
+        DeprecationWarning, stacklevel=3)
+
+
+def xor_delta_planes_np(base: np.ndarray, ft: np.ndarray) -> List[np.ndarray]:
+    """Deprecated alias of ``get_backend("numpy").xor_delta_planes``."""
+    _warn_shim("xor_delta_planes_np", "xor_delta_planes")
+    return _xor_delta_planes_host(base, ft)
+
+
+def byte_planes_np(x: np.ndarray) -> List[np.ndarray]:
+    """Deprecated alias of ``get_backend("numpy").byte_planes``."""
+    _warn_shim("byte_planes_np", "byte_planes")
+    return _byte_planes_host(x)
+
+
+def merge_planes_xor_np(planes: Sequence[np.ndarray], base: np.ndarray) -> np.ndarray:
+    """Deprecated alias of ``get_backend("numpy").merge_planes_xor``."""
+    _warn_shim("merge_planes_xor_np", "merge_planes_xor")
+    return _merge_planes_xor_host(planes, base)
 
 
 @dataclass

@@ -1,6 +1,9 @@
 # Port copy of src/repro/core/pipeline.py: host-only, logic unchanged except the
-# ZLLMStore backend default ("torch", so the store runs on the card) and the
-# backend counters in summary().
+# ZLLMStore backend default ("torch", so the store runs on the card), the
+# backend counters in summary(), and _elect_base, which unbinds a family base
+# whose tensors gc or compaction retired before an upload is coded against it
+# (the reference BitX-codes such an upload against hashes with no record), or
+# rebinds a repo id to its key's live binding.
 """zLLM end-to-end storage reduction pipeline (paper §4.4, Fig. 7).
 
 Ingest path per uploaded repo:
@@ -984,10 +987,8 @@ class ZLLMStore:
                 pf.close()  # a full probe match awaited every tensor hash
                 return res, None
             # ③a/③b family resolution (before encoding, so BitX knows its base)
-            base_id, base_source = self._resolve_base(pf.repo_id, pf.path,
-                                                      pf.declared_base)
+            base_id, base_source, base_tensors = self._elect_base(pf)
             res.base_id, res.base_source = base_id, base_source
-            base_tensors = self._base_tensor_map(base_id) if base_id else {}
             gen = self.lifecycle.next_generation(key)
             writer = BitXWriter(level=self.zstd_level, threads=self.zstd_threads,
                                 backend=self.backend)
@@ -1172,10 +1173,13 @@ class ZLLMStore:
         gone — a silent zipnn fallback for new fine-tunes."""
         for bid in (key, repo_id):
             if self.base_key_of.get(bid) == key:
-                self.invalidate_base_map(bid)
-                self.base_paths.pop(bid, None)
-                self.base_key_of.pop(bid, None)
-                self.families.unregister(bid)
+                self._drop_base_binding(bid)
+
+    def _drop_base_binding(self, bid: str) -> None:
+        self.invalidate_base_map(bid)
+        self.base_paths.pop(bid, None)
+        self.base_key_of.pop(bid, None)
+        self.families.unregister(bid)
 
     def _set_index_entry(self, key: str, rec: Dict) -> None:
         """Commit an index record, releasing the whole-file hash of any
@@ -1595,6 +1599,45 @@ class ZLLMStore:
         if m is not None:
             return m[0], "bitdistance"
         return None, ""
+
+    def _elect_base(self, pf: "_PreparedUpload"
+                    ) -> Tuple[Optional[str], str, Dict[str, Tuple]]:
+        """The upload's family base, how it was found, and its tensor map.
+
+        A base binding must not outlive the pool entries of the tensors its
+        map names. gc and compaction retire a generation and scrub its pins
+        without touching the bindings primed from it (a key that a whole-file
+        or near-dup re-upload re-pointed keeps its old binding), and a
+        fine-tune coded against such a base would name base hashes with no
+        record: a ``KeyError`` at retrieval, or, when the upload holds the
+        base's own bytes, a BitX record that is its own base (a resolution
+        cycle). So a base whose map names an unpinned hash is unbound here
+        and the upload is matched again, down to standalone. A repo id whose
+        first standalone file is gone takes its key's binding in its place
+        when that one is live (the repo's current standalone content), and is
+        unbound with it otherwise."""
+        while True:
+            base_id, src = self._resolve_base(pf.repo_id, pf.path,
+                                              pf.declared_base)
+            if base_id is None:
+                return None, "", {}
+            tensors = self._base_tensor_map(base_id)
+            if self._base_is_live(tensors):
+                return base_id, src, tensors
+            key = self.base_key_of.get(base_id)
+            self._drop_base_binding(base_id)
+            if key is None or key == base_id or key not in self.base_paths:
+                continue
+            key_tensors = self._base_tensor_map(key)
+            if key_tensors and key in self._base_maps and self._base_is_live(key_tensors):
+                path = self.base_paths[key]
+                self._bind_base(base_id, path, key, self._base_maps[key])
+                self.families.register(base_id, path)
+            else:
+                self._drop_base_binding(key)
+
+    def _base_is_live(self, tensors: Dict[str, Tuple]) -> bool:
+        return all(t[3] in self.tensor_locations for t in tensors.values())
 
     # -- base-map cache -------------------------------------------------
     def _register_base(self, repo_id: str, key: str, path: str,

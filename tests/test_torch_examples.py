@@ -13,6 +13,8 @@ REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = {
     "torch_quickstart.py": ("all files reconstruct bit-exactly", "ingest job done",
                             "equal to the direct read", "'device': 'cpu'"),
+    "torch_hub_simulation.py": ("every file reconstructs bit-exactly", "final: zLLM saves",
+                                "2 exact re-uploads", "device: cpu"),
     "torch_serve_from_compressed.py": ("params bit-equal to the source", "batched serving done",
                                        "equal to the in-process reconstruction",
                                        "store kernels: {'xor_split': 1"),
@@ -21,7 +23,8 @@ EXAMPLES = {
                                              "device: cpu"),
 }
 # arguments of an example besides ``--device cpu`` (its tiny size)
-ARGS = {"torch_train_with_zllm_checkpoints.py": ("--tiny", "--steps", "12")}
+ARGS = {"torch_train_with_zllm_checkpoints.py": ("--tiny", "--steps", "12"),
+        "torch_hub_simulation.py": ("--families", "2", "--per-family", "3")}
 
 
 def _run(name, *args, **env):

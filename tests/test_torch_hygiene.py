@@ -19,6 +19,7 @@ from repro_torch.serve import engine
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py",
+    REPO / "examples" / "torch_hub_simulation.py",
     REPO / "examples" / "torch_serve_from_compressed.py",
     REPO / "examples" / "torch_train_with_zllm_checkpoints.py"]
 BANNED = {"jax", "jaxlib", "repro", "benchmarks", "ml_dtypes"}
