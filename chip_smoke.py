@@ -7,11 +7,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: require CUDA, print ``nvidia-smi`` name and power limit;
 2. build: compile ``src/repro_torch/kernels/csrc/planes.cu``,
-   ``flash_attention.cu`` and ``flash_attention_sm90.cu`` with nvcc (with
-   ``-Xptxas -v``), one process per source, in parallel; print each flash
-   kernel's registers and spills and the count of ``HGMMA`` (tensor-core)
-   instructions in each flash kernel's SASS (``cuobjdump -sass``); every sm90
-   instance (D 64, 80, 128) must hold some;
+   ``flash_attention.cu``, ``flash_attention_sm90.cu`` and
+   ``flash_attention_tf32.cu`` with nvcc (with ``-Xptxas -v``), one process
+   per source, in parallel; print each flash kernel's registers and spills
+   and the count of its tensor-core instructions in its SASS (``cuobjdump
+   -sass``): ``HGMMA`` (wgmma), which every sm90 instance (D 64, 80, 128) must
+   hold, and ``HMMA`` (mma.sync), which every tf32 instance (each head dim in
+   float32 and bf16) must hold;
 3. kernels: each of the six storage kernels against its plain PyTorch version
    on the card, byte for byte (bit counts exactly), at word widths 1/2/4/8 and
    awkward lengths (the word XOR also on operands off a 16-byte boundary and at
@@ -73,7 +75,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    requests are then served again with each flash call held against its plain
    version on its own inputs, and the prefill logits of the flash and plain
    attention engines are held to the float32 model's. Every flash call of the
-   serving run takes the ``sm90`` route;
+   serving run takes the ``sm90`` route. That float32 model (the same
+   parameters, plain attention) is then run through attn="flash" on the same
+   batches: exactly 2 layers x 2 prefills of the ``tf32`` route (none on
+   another), each call held against its plain version within 2e-5, the logits
+   within 1e-4 of the plain float32 model's max |logit|, the greedy tokens
+   equal, each prefill timed against plain attention;
 8. hub server: phase 7's store (index saved, closed) served by
    ``python -m repro_torch.serve.store_server --root <store> --port 0`` as a
    process of its own, its store on the card. Ranged tensor GETs of the
@@ -105,16 +112,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and served (1024-token prompts, 16 new). For each model: flash launches
    counted by route in the served run; every flash call of a prefill held
    against its plain version; the flash and plain engines' prefill logits
-   against a float32 copy of the model; prefill S + one decode step against
+   against a float32 copy of the model; that float32 copy through attn="flash"
+   as in phase 7 (whisper's 72 and zamba2's 9 calls a prefill on the ``tf32``
+   route, D 64 and 80); prefill S + one decode step against
    prefill S + 1; ``_pad_cache`` growing exactly the attention caches
    (falcon-mamba's cache bytes the same at 128 and 1024 tokens); prefill ms
    (served and warm), decode ms per step, tokens/s and peak device memory,
    for 9c ingest MB/s and the cold start, beside the card's name and power
-   limit. The flash kernel is timed at 9b's shape (D 80, causal) on both
-   routes, ``sm90`` (the path's) and ``simt``, and at 9a's encoder shape
-   (sm90, D 64, bidirectional) beside its bound and
-   ``scaled_dot_product_attention``. The results go on a JSON line of their
-   own (``families``).
+   limit. The flash kernel is timed at 9b's shape (D 80, causal, bf16) on
+   ``sm90`` (the path's) and ``tf32`` (and 9b's warm prefill with its calls
+   on each, in turns), and at 9a's encoder shape (sm90, D 64, bidirectional)
+   beside its bound and ``scaled_dot_product_attention``. The results go on
+   a JSON line of their own (``families``).
 10. training: 10a trains Qwen2-7B's published widths, depth cut from 28
    decoder layers to 2 (full-vocabulary embed and lm_head kept; bf16
    parameters drawn on the card from the seed), the first 8 steps of AdamW
@@ -183,17 +192,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``long_500k`` on the multi-pod mesh dry-run with 11b's cells. The results
    go on a JSON line of their own (``mesh_families``).
 
-Phase 3 also holds both flash-attention kernels (routes ``sm90`` and ``simt``)
-against their plain version (``ref.mha_reference``) at the reference tests'
-cases, ragged lengths, every head dim (80 included), Sq != Sk, bidirectional and windowed
-masks, fully masked rows and strided (fused-projection) and misaligned
-operands, asserting the route of each call (bf16 at D 64, 80 and 128 takes
-``sm90``; at D 80 the ``simt`` kernel is also launched directly on the bf16
-cases, since no wrapper call takes it there), and times both at the shapes
-phase 7's prefills give the kernel (B 4, S 2032 and 512, H 28, D 128, bf16,
-causal) and at S 2048, beside their bound, the plain version and
-``torch.nn.functional.scaled_dot_product_attention``, with the wrapper's host
-time per call.
+Phase 3 also holds the flash-attention kernels (routes ``sm90`` and ``tf32``,
+and the first port's ``simt`` kernel, which no route picks any more) against
+their plain version (``ref.mha_reference``) at the reference tests' cases,
+ragged lengths, every head dim (80 included), Sq != Sk, bidirectional and
+windowed masks, fully masked rows, strided (fused-projection) and misaligned
+operands (float32 and bf16 slices 2-8 bytes off a 16-byte boundary) and heads
+broadcast with stride 0, asserting the route of each call (bf16 at D 64, 80
+and 128 with TMA-addressable operands takes ``sm90``, every other call
+``tf32``; at D 80 the ``simt`` kernel is also launched directly on the bf16
+cases). It times ``sm90`` at the shapes phase 7's prefills give the kernel
+(B 4, S 2032 and 512, H 28, D 128, bf16, causal) and at S 2048, ``simt`` at
+the first of them; ``tf32`` against ``simt`` in bf16 at D 256 (B 4, S 2048,
+H 16, causal); and, on float32 inputs, ``tf32`` against ``simt`` at phase
+7's (4, 2032, 28, 128, causal), zamba2-2.7b's (4, 1024, 32, 80, causal) and
+whisper-medium's encoder (4, 1500, 16, 64, bidirectional) shapes; each beside
+its bound (float32 at the TF32 rate, with the three passes' ceiling), the
+plain version and ``torch.nn.functional.scaled_dot_product_attention`` (on
+float32 inputs with TF32 off, the backend it dispatched to named), with the
+wrapper's host time per call. These are the smoke's only ``simt`` launches.
 
 The last lines are the lifecycle line, the hub server's line, the families
 line, the train line, the mesh line, the mesh families line, the card's name
@@ -251,6 +268,7 @@ DEVICE = "cuda"
 SEED = 0  # every weight and input of the run is drawn from generators seeded from it
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate (used for every bound below)
 BF16_FLOP_PER_S = 989e12   # H100 SXM published dense bf16 tensor-core rate
+TF32_FLOP_PER_S = 495e12   # H100 SXM published dense TF32 tensor-core rate
 
 # Qwen2-7B's published widths (src/repro/configs/qwen2_7b.py:5-12)
 QWEN2_7B = dict(d_model=3584, d_ff=18944, vocab=152064, n_heads=28, n_kv_heads=4, qkv_bias=True)
@@ -273,10 +291,14 @@ KERNELS = {
     "hamming": ("src/repro/kernels/hamming.py:36", 2, "none: PyTorch has no popcount"),
 }
 SOURCE = "src/repro_torch/kernels/csrc/planes.cu"
-# the two routes of the flash-attention wrapper (kernels/flash_attention.py::route)
+# the routes of the flash-attention wrapper (kernels/flash_attention.py::route
+# picks sm90 or tf32; the first port's simt kernel is launched directly, in
+# phase 3 only)
 FLASH = {
     "sm90": {"name": "flash_attention_sm90",
              "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"},
+    "tf32": {"name": "flash_attention_tf32",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"},
     "simt": {"name": "flash_attention", "source": "src/repro_torch/kernels/csrc/flash_attention.cu"},
 }
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:99"
@@ -496,8 +518,8 @@ FLASH_CASES = [
     (1, 170, 300, 2, 128, False, 0), (1, 260, 260, 2, 64, True, 64),
     (1, 128, 16, 2, 64, False, 8),
     # head dim 80 (zamba2-2.7b; sm90 in bf16, and phase 3 also launches simt
-    # on the bf16 inputs): ragged, Sq != Sk, a window; and whisper's cross
-    # attention, 64 decoder tokens to 1500 frames
+    # on the bf16 inputs, tf32 in float32): ragged, Sq != Sk, a window; and
+    # whisper's cross attention, 64 decoder tokens to 1500 frames
     (2, 333, 333, 4, 80, True, 0), (1, 64, 300, 2, 80, False, 0), (1, 200, 200, 2, 80, True, 64),
     (2, 64, 1500, 16, 64, False, 0),
 ]
@@ -509,11 +531,23 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_flash_kern
 # them. The kernels line reports the first, the largest shape of the path.
 FLASH_TIMED = ((4, 2032), (4, 512), (4, 2048))
 FLASH_H, FLASH_D = 28, 128
+# float32 shapes the tf32 route is timed at (B, S, H, D, causal), each beside
+# the simt kernel it replaces, the plain version and SDPA on float32 inputs:
+# phase 7's larger prefill, zamba2-2.7b's shared attention (phase 9b) and
+# whisper-medium's encoder (phase 9a). The first is the kernels line's.
+FLASH_TIMED_F32 = {"phase 7": (4, 2032, 28, 128, True), "zamba2": (4, 1024, 32, 80, True),
+                   "whisper encoder": (4, 1500, 16, 64, False)}
+# bf16 at head dim 256 (the tf32 route's one pass) against simt
+FLASH_TIMED_D256 = (4, 2048, 16, 256, True)
+# operand offsets (in elements from a 16-byte boundary) of the misaligned
+# slices the tf32 route reads: its copies are 16, 8, 4 or 2 bytes wide
+FLASH_OFFSETS = ((torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 1),
+                 (torch.bfloat16, 2), (torch.bfloat16, 4))
 
 
 def flash_route(dtype, D: int) -> str:
     """The route a new contiguous operand of this dtype and head dim takes."""
-    return "sm90" if dtype == torch.bfloat16 and D in fa.SM90_HEAD_DIMS else "simt"
+    return "sm90" if dtype == torch.bfloat16 and D in fa.SM90_HEAD_DIMS else "tf32"
 
 
 def held_to_plain(got, q, k, v, causal: bool, window: int = 0) -> float:
@@ -542,20 +576,78 @@ def flash_checked(q, k, v, causal: bool, window: int = 0, *, route: str) -> tupl
     return got, held_to_plain(got, q, k, v, causal, window)
 
 
-def flash_bound(B: int, S: int, H: int, D: int, causal: bool = True) -> tuple:
-    """(bound ms, what bounds it) of bf16 self attention at these shapes:
-    both products over the unmasked (q, k) pairs at the bf16 tensor-core rate,
-    against each input read and the output written once at the memory rate."""
+def flash_bound(B: int, S: int, H: int, D: int, causal: bool = True,
+                dtype=torch.bfloat16, passes: int = 1) -> tuple:
+    """(bound ms, what bounds it) of self attention at these shapes: both
+    products over the unmasked (q, k) pairs at the tensor-core rate of the
+    dtype (bf16; TF32 for float32), ``passes`` times over, against each input
+    read and the output written once at the memory rate. ``passes`` 3 gives
+    the ceiling of the tf32 kernel's three-pass float32 products."""
     pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
-    ops_ms = 4 * pairs * D / BF16_FLOP_PER_S * 1e3
-    bytes_ms = 4 * B * S * H * D * 2 / HBM_BYTES_PER_S * 1e3
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else TF32_FLOP_PER_S
+    ops_ms = passes * 4 * pairs * D / rate * 1e3
+    bytes_ms = 4 * B * S * H * D * torch.finfo(dtype).bits // 8 / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend scaled_dot_product_attention dispatches these (B, H, S, D)
+    inputs to: the first of its priority order that runs them alone."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    by_value = {b.value: b for b in SDPBackend.__members__.values()}
+    for value in torch._C._get_sdp_priority_order():
+        backend = by_value.get(value)
+        if backend is None or backend == SDPBackend.ERROR:
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        except RuntimeError:
+            continue
+        return backend.name
+    raise AssertionError("no backend of scaled_dot_product_attention runs these inputs")
+
+
+def time_flash_f32(label: str, B: int, S: int, H: int, D: int, causal: bool,
+                   gen: torch.Generator) -> dict:
+    """The tf32 route at a float32 shape beside the simt kernel it replaces,
+    the plain version and SDPA on the same float32 inputs (TF32 off)."""
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE) for _ in range(3))
+    tf32 = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    r = {"shape": [B, S, H, D], "causal": causal, "dtype": "float32",
+         "max_abs_err": flash_checked(q, k, v, causal, route="tf32")[1]}
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, S, D), same storage
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal)
+    r["library_backend"] = sdpa_backend(qt, kt, vt, causal)
+    r["ms"], r["host_us"] = cuda_ms(tf32), host_us(tf32)
+    r["plain_ms"] = cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal), iters=3)
+    r["library_ms"] = cuda_ms(sdpa)
+    r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal, torch.float32)
+    r["passes_bound_ms"], _ = flash_bound(B, S, H, D, causal, torch.float32, passes=3)
+    mode = "causal" if causal else "bidirectional"
+    fn = lambda: fa._launch("simt", q, k, v, causal, 0)  # noqa: E731
+    r["simt"] = {"max_abs_err": held_to_plain(fn(), q, k, v, causal), "ms": cuda_ms(fn)}
+    log(f"kernel flash_attention_tf32 (tf32): {r['ms']:.4f} ms at {label} B={B} S={S} H={H} "
+        f"D={D} float32 {mode} (bound {r['bound_ms']:.4f} ms by {r['bound_by']} at 495 TFLOP/s "
+        f"TF32, {r['bound_ms'] / r['ms']:.1%} of it; three passes' ceiling "
+        f"{r['passes_bound_ms']:.4f} ms, {r['passes_bound_ms'] / r['ms']:.1%} of it); host "
+        f"{r['host_us']:.1f} us per call; simt {r['simt']['ms']:.4f} ms "
+        f"({r['simt']['ms'] / r['ms']:.2f}x the tf32 kernel's time, max_abs_err "
+        f"{r['simt']['max_abs_err']:.3e}); plain version {r['plain_ms']:.4f} ms; library: "
+        f"{FLASH_LIBRARY} float32 ({r['library_backend']}, allow_tf32 off) {r['library_ms']:.4f} ms "
+        f"({r['library_ms'] / r['ms']:.2f}x the kernel's speed); max_abs_err "
+        f"{r['max_abs_err']:.3e} (tolerance 2e-5)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return r
+
+
 def phase_flash(gen: torch.Generator) -> dict:
-    """Both flash kernels against their plain version; their times at the
-    serving path's shapes. Returns each route's report entry (the first timed
-    shape's)."""
+    """The flash kernels against their plain version; their times at the
+    serving path's shapes. Returns each route's report entry (sm90: phase 7's
+    bf16 S 2032 shape; tf32: its float32 twin; simt: that float32 shape too)
+    and, under "f32" and "d256", every float32 and the D 256 timing."""
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     bf16 = torch.bfloat16
     fa.reset_route_launches()
@@ -581,13 +673,25 @@ def phase_flash(gen: torch.Generator) -> dict:
         worst[("bfloat16", "sm90")] = max(worst[("bfloat16", "sm90")], err)
         buf = torch.randn((2, 130, 4, D + 8), generator=gen, device=DEVICE).to(bf16)
         q = buf[..., 1:1 + D]
-        err = flash_checked(q, qkv[:, :, 4:8], qkv[:, :, 8:], True, route="simt")[1]
-        worst[("bfloat16", "simt")] = max(worst[("bfloat16", "simt")], err)
+        err = flash_checked(q, qkv[:, :, 4:8], qkv[:, :, 8:], True, route="tf32")[1]
+        worst[("bfloat16", "tf32")] = max(worst[("bfloat16", "tf32")], err)
+    for dt, off in FLASH_OFFSETS:
+        for D in (16, 80, 128, 256):
+            # q a slice `off` elements into wider rows, k's heads broadcast
+            # with stride 0: the tf32 kernel's copies at 4, 8 (or 2) bytes
+            buf = torch.randn((2, 130, 4, D + 8), generator=gen, device=DEVICE).to(dt)
+            k = torch.randn((2, 130, 1, D), generator=gen, device=DEVICE).to(dt).expand(2, 130, 4, D)
+            v = torch.randn((2, 130, 4, D), generator=gen, device=DEVICE).to(dt)
+            key = (str(dt).split(".")[-1], "tf32")
+            worst[key] = max(worst[key], flash_checked(buf[..., off:off + D], k, v, True,
+                                                       route="tf32")[1])
     launches = fa.route_launches()
-    log(f"kernel flash_attention: both routes equal to their plain version at "
+    log(f"kernel flash_attention: every route equal to its plain version at "
         f"{len(FLASH_CASES)} shapes x 2 dtypes (D in {{16, 32, 64, 80, 128, 256}}, ragged 33/77/1000, "
-        f"causal, bidirectional, window 64, Sq != Sk both ways, fully masked rows) and on "
-        f"fused-projection and misaligned slices; launches by route {launches}; max_abs_err "
+        f"causal, bidirectional, window 64, Sq != Sk both ways, fully masked rows), on "
+        f"fused-projection and misaligned slices (offsets {[(str(d)[6:], o) for d, o in FLASH_OFFSETS]} "
+        f"elements, heads broadcast with stride 0); each call's route asserted; launches by route "
+        f"{launches}; max_abs_err "
         + ", ".join(f"{dt} {r} {e:.3e}" for (dt, r), e in sorted(worst.items()))
         + " (tolerance 2e-5 in float32, 2e-2 in bf16, as rtol and atol)")
 
@@ -596,10 +700,12 @@ def phase_flash(gen: torch.Generator) -> dict:
     for B, S in FLASH_TIMED:
         q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(bf16)
                    for _ in range(3))
-        calls = {"sm90": lambda: flash_attention(q, k, v, causal=True),
-                 "simt": lambda: fa._launch("simt", q, k, v, True, 0)}
-        errs = {"sm90": flash_checked(q, k, v, True, route="sm90")[1],
-                "simt": held_to_plain(calls["simt"](), q, k, v, True)}
+        # the simt kernel only at the first shape
+        calls = {"sm90": lambda: flash_attention(q, k, v, causal=True)}
+        errs = {"sm90": flash_checked(q, k, v, True, route="sm90")[1]}
+        if (B, S) == FLASH_TIMED[0]:
+            calls["simt"] = lambda: fa._launch("simt", q, k, v, True, 0)
+            errs["simt"] = held_to_plain(calls["simt"](), q, k, v, True)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, S, D), same storage
         shared = {"shape": [B, S, H, D],
                   "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=True), iters=3),
@@ -615,8 +721,43 @@ def phase_flash(gen: torch.Generator) -> dict:
                 f"back-to-back calls); plain version {r['plain_ms']:.4f} ms; library: "
                 f"{FLASH_LIBRARY} {r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.2f}x the "
                 f"kernel's speed); max_abs_err {r['max_abs_err']:.3e} (tolerance 2e-2)")
-            reports.setdefault(route, r)
+            reports.setdefault(f"{route}_bf16", r)
         del q, k, v, qt, kt, vt
+    reports["sm90"] = reports.pop("sm90_bf16")
+
+    # bf16 at D 256: the tf32 route's one pass against simt
+    B, S, H256, D256, causal = FLASH_TIMED_D256
+    q, k, v = (torch.randn((B, S, H256, D256), generator=gen, device=DEVICE).to(bf16)
+               for _ in range(3))
+    tf32 = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    simt = lambda: fa._launch("simt", q, k, v, causal, 0)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    d256 = {"shape": [B, S, H256, D256], "dtype": "bfloat16",
+            "max_abs_err": flash_checked(q, k, v, causal, route="tf32")[1],
+            "simt": {"max_abs_err": held_to_plain(simt(), q, k, v, causal), "ms": cuda_ms(simt)},
+            "ms": cuda_ms(tf32), "host_us": host_us(tf32),
+            "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal), iters=3),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))}
+    d256["bound_ms"], d256["bound_by"] = flash_bound(B, S, H256, D256, causal)
+    log(f"kernel flash_attention_tf32 (tf32): {d256['ms']:.4f} ms at B={B} S={S} H={H256} "
+        f"D={D256} bf16 causal, one pass (bound {d256['bound_ms']:.4f} ms by {d256['bound_by']} at "
+        f"989 TFLOP/s bf16, {d256['bound_ms'] / d256['ms']:.1%} of it); simt "
+        f"{d256['simt']['ms']:.4f} ms ({d256['simt']['ms'] / d256['ms']:.2f}x the tf32 kernel's "
+        f"time); plain version {d256['plain_ms']:.4f} ms; library: {FLASH_LIBRARY} "
+        f"{d256['library_ms']:.4f} ms; max_abs_err {d256['max_abs_err']:.3e} (tolerance 2e-2)")
+    del q, k, v, qt, kt, vt
+
+    # float32 at the families' shapes: tf32 against simt, the plain version and SDPA
+    f32 = {label: time_flash_f32(label, *shape, gen)
+           for label, shape in FLASH_TIMED_F32.items()}
+    first = f32["phase 7"]
+    reports["tf32"] = first
+    reports["simt"] = {**{k: first[k] for k in ("shape", "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by")},
+                       **first["simt"], "host_us": None,
+                       "bf16": reports.pop("simt_bf16")}
+    reports["f32"], reports["d256"] = f32, d256
     torch.cuda.empty_cache()
     return reports
 
@@ -627,8 +768,9 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
 def _kernel_name(mangled: str) -> str:
-    """flash_fwd_sm90_kernel<128>, flash_fwd_kernel<bf16,128,32>, ... from a
-    mangled flash kernel name; other names as they are."""
+    """flash_fwd_sm90_kernel<128>, flash_fwd_kernel<bf16,128,32>,
+    flash_fwd_tf32_kernel<f32,128,32,3>, ... from a mangled flash kernel name;
+    other names as they are."""
     m = re.search(r"(flash_fwd\w*?_kernel)I(.+?)EEv", mangled)
     if not m:
         return mangled
@@ -648,10 +790,13 @@ def _cuobjdump():
 
 def flash_build_report() -> dict:
     """Per flash kernel instance: registers and spilled bytes (from the build's
-    ``-Xptxas -v``) and HGMMA instructions in its SASS (``cuobjdump -sass``).
-    Raises if an sm90 instance (one per head dim of the route) is missing or
-    holds no HGMMA."""
+    ``-Xptxas -v``) and its tensor-core instructions in its SASS (``cuobjdump
+    -sass``): HGMMA (wgmma) and HMMA (mma.sync). Raises if an sm90 instance
+    (one per head dim of the route) is missing or holds no HGMMA, or a tf32
+    instance (one per head dim and dtype) none or no HMMA."""
     info = {}
+    blank = {"registers": None, "spill_stores": None, "spill_loads": None, "hgmma": None,
+             "hmma": None}
     for src, text in _build.build_log().items():
         if not src.startswith("flash_attention"):
             continue
@@ -659,8 +804,7 @@ def flash_build_report() -> dict:
         for line in text.splitlines():
             if (m := _PTXAS_ENTRY.search(line)):
                 name = _kernel_name(m.group(1))
-                info[name] = {"registers": None, "spill_stores": None, "spill_loads": None,
-                              "hgmma": None}
+                info[name] = dict(blank)
             elif name and (m := _PTXAS_SPILL.search(line)):
                 info[name]["spill_stores"], info[name]["spill_loads"] = map(int, m.groups())
             elif name and (m := _PTXAS_REGS.search(line)):
@@ -675,26 +819,40 @@ def flash_build_report() -> dict:
             if (m := re.search(r"Function : (\S+)", line)):
                 name = _kernel_name(m.group(1))
                 if name.startswith("flash_fwd"):
-                    info.setdefault(name, {"registers": None, "spill_stores": None,
-                                           "spill_loads": None})["hgmma"] = 0
+                    info.setdefault(name, dict(blank)).update(hgmma=0, hmma=0)
                 else:
                     name = None
             elif name and "HGMMA" in line:
                 info[name]["hgmma"] += 1
+            elif name and "HMMA" in line:
+                info[name]["hmma"] += 1
     for name, r in sorted(info.items()):
         regs = ("not captured (the library was built by an earlier process)"
                 if r["registers"] is None else
                 f"{r['registers']} registers, spills {r['spill_stores']} bytes stored, "
                 f"{r['spill_loads']} bytes loaded")
-        hg = "not available (no cuobjdump)" if r["hgmma"] is None else r["hgmma"]
-        log(f"build: {name}: {regs}; HGMMA instructions in its SASS: {hg}")
+        mma = ("not available (no cuobjdump)" if r["hgmma"] is None else
+               f"HGMMA {r['hgmma']}, HMMA {r['hmma']}")
+        log(f"build: {name}: {regs}; tensor-core instructions in its SASS: {mma}")
     if sass is not None:
         sm90 = {D: info.get(f"flash_fwd_sm90_kernel<{D}>", {}).get("hgmma")
                 for D in fa.SM90_HEAD_DIMS}
         if not all(sm90.values()):
             raise AssertionError(f"an sm90 flash kernel instance is missing or holds no HGMMA "
                                  f"instruction: {sm90}; {info}")
+        tf32 = {n: r["hmma"] for n, r in info.items() if n.startswith("flash_fwd_tf32_kernel")}
+        if len(tf32) != 2 * len(fa.HEAD_DIMS) or not all(tf32.values()):
+            raise AssertionError(f"a tf32 flash kernel instance is missing or holds no HMMA "
+                                 f"instruction: {tf32}")
     return info
+
+
+def tf32_instance(dtype, D: int) -> str:
+    """The name flash_build_report gives the tf32 kernel's instance for this
+    dtype and head dim (its KV tile and passes as the launcher picks them)."""
+    f32 = dtype == torch.float32
+    bkv = 32 if D == 256 or (D >= 64 and f32) else 64
+    return f"flash_fwd_tf32_kernel<{'f32' if f32 else 'bf16'},{D},{bkv},{3 if f32 else 1}>"
 
 
 # ---------------------------------------------------------------------------
@@ -1261,8 +1419,9 @@ def _serve(engine: ServeEngine, prompts) -> tuple:
 
 def phase_serve(tmp: str, seed: int) -> tuple:
     """Cold-start a 2-layer Qwen2-7B-width fine-tune from the store and serve
-    8 requests; returns the flash launches of the serving run and the kernel's
-    largest difference from its plain version on the inputs the run gave it."""
+    8 requests; returns the flash launches of the serving run, the kernel's
+    largest difference from its plain version on the inputs the run gave it,
+    and the float32 model's flash prefills (:func:`float32_flash`)."""
     cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=SERVE_LAYERS)
     log(f"serve: {cfg.name} widths (d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads, "
         f"{cfg.n_kv_heads} KV heads, head dim {cfg.hd}, QKV bias, vocab {cfg.vocab}, "
@@ -1327,7 +1486,7 @@ def phase_serve(tmp: str, seed: int) -> tuple:
     routes = fa.route_launches()
     peak = torch.cuda.max_memory_allocated()
     n_prefills = -(-len(prompts) // SERVE_BATCH)
-    if launches != SERVE_LAYERS * n_prefills or routes != {"sm90": launches, "simt": 0}:
+    if launches != SERVE_LAYERS * n_prefills or routes != {"sm90": launches, "tf32": 0, "simt": 0}:
         raise AssertionError(f"serve: {launches} flash launches (by route {routes}), want "
                              f"{SERVE_LAYERS} layers x {n_prefills} prefills, all sm90")
     for t in toks:
@@ -1373,11 +1532,17 @@ def phase_serve(tmp: str, seed: int) -> tuple:
                         attn="plain")
     params32 = {k: v.float() for k, v in engine.params.items()}
     drift = {"flash": [], "plain": []}
+    logits32 = []
     for batch, lf, lp in zip(prefill.batches, prefill.logits, plain_prefill.logits):
         l32, _ = model32.prefill(params32, batch)
+        logits32.append(l32)
         drift["flash"].append(float((lf - l32).abs().max()))
         drift["plain"].append(float((lp - l32).abs().max()))
-    del params32
+    # the same float32 parameters and batches through attn="flash": the tf32 route
+    f32 = float32_flash("serve", dataclasses.replace(cfg, param_dtype="float32",
+                                                     act_dtype="float32"),
+                        params32, prefill.batches, model32, logits32, SERVE_LAYERS)
+    del params32, logits32
     torch.cuda.empty_cache()
     if not max(drift["flash"]) <= SERVE_DRIFT * max(drift["plain"]):
         raise AssertionError(f"serve: flash engine {drift['flash']} from the float32 model's "
@@ -1400,7 +1565,71 @@ def phase_serve(tmp: str, seed: int) -> tuple:
         f"{', '.join(f'{e:.4e}' for e in drift['plain'])} (allowed for flash: {SERVE_DRIFT}x the "
         f"plain engine's); flash against plain {', '.join(f'{e:.4e}' for e in errs)}; greedy "
         f"tokens agreeing between the engines {agree} of {n_tok}")
-    return launches, path_err
+    return launches, path_err, f32
+
+
+F32_LOGIT_TOL = 1e-4  # of the float32 plain model's max |logit|: float32 flash against plain
+
+
+def float32_flash(name: str, cfg32, params32: dict, batches: list, plain32, logits32: list,
+                  n_calls: int) -> dict:
+    """The float32 model's prefills through attn="flash" (the tf32 route) on
+    the batches its attn="plain" twin ``plain32`` gave ``logits32``: a run
+    counted from 0 (exactly ``n_calls`` tf32 launches a prefill, none on
+    another route), each flash call held against its plain version on its own
+    inputs, the logits within F32_LOGIT_TOL of the plain model's max |logit|
+    and the greedy tokens equal; each prefill timed, flash (the counted run)
+    and then plain (both warm: ``plain32`` ran these batches already, and
+    the two models run the same GEMMs)."""
+    def timed(m, b):  # (logits, ms) of one prefill
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = m.prefill(params32, b)
+        torch.cuda.synchronize()
+        return lg, 1e3 * (time.perf_counter() - t0)
+
+    model = get_model(cfg32, attn="flash")
+    fa.reset_route_launches()
+    _build.reset_launch_counts()
+    logits, flash_ms = zip(*(timed(model, b) for b in batches))
+    routes, launched = fa.route_launches(), _build.launch_counts()["flash_attention"]
+    want = {r: n_calls * len(batches) if r == "tf32" else 0 for r in routes}
+    if routes != want or launched != want["tf32"]:
+        raise AssertionError(f"{name} float32 flash: launches by route {routes} ({launched} "
+                             f"flash), want {want}")
+    errs = []
+
+    def checked(q, k, v, *, causal, window=0):
+        got, err = flash_checked(q, k, v, causal, window, route="tf32")
+        errs.append(err)
+        return got
+
+    model_base.flash_attention = checked
+    try:
+        for b in batches:
+            model.prefill(params32, b)
+    finally:
+        model_base.flash_attention = flash_attention
+    if len(errs) != want["tf32"]:
+        raise AssertionError(f"{name} float32 flash: {len(errs)} calls checked, {want['tf32']} "
+                             f"launched")
+    scale = max(float(l.abs().max()) for l in logits32)
+    logit_err = max(float((a - b).abs().max()) for a, b in zip(logits, logits32))
+    same = all(torch.equal(a.argmax(dim=-1), b.argmax(dim=-1)) for a, b in zip(logits, logits32))
+    if not (logit_err <= F32_LOGIT_TOL * scale and same):
+        raise AssertionError(f"{name} float32 flash: logits {logit_err} from the plain model's "
+                             f"(allowed {F32_LOGIT_TOL} x {scale}), greedy tokens equal: {same}")
+    per = {"flash": list(flash_ms), "plain": [timed(plain32, b)[1] for b in batches]}
+    r = {"launches": want["tf32"], "launches_simt": routes["simt"], "flash_err": max(errs),
+         "logit_err": logit_err,
+         "logit_scale": scale, "tokens_equal": same, "prefill_ms": per}
+    log(f"{name}: float32 model with attn=flash: {want['tf32']} tf32 launches ({n_calls} a "
+        f"prefill x {len(batches)}, none on another route), each held to its plain version "
+        f"(max_abs_err {r['flash_err']:.3e}, tolerance 2e-5); logits against the float32 plain "
+        f"model's {logit_err:.4e} (allowed {F32_LOGIT_TOL} x max |logit| {scale:.4f}), greedy "
+        f"tokens equal; prefill ms flash / plain "
+        + ", ".join(f"{f:.2f} / {p:.2f}" for f, p in zip(per["flash"], per["plain"])))
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -1863,10 +2092,13 @@ def _cache_bytes(cache: dict) -> int:
     return sum(v.numel() * v.element_size() for k, v in cache.items() if k != "len")
 
 
-def _family_checks(name: str, cfg, engine: ServeEngine, batch: dict, route, module) -> dict:
+def _family_checks(name: str, cfg, engine: ServeEngine, batch: dict, route, module,
+                   n_calls: int = 0) -> dict:
     """On the served prefill's batch: every flash call held against its plain
     version (route asserted), the flash and plain engines' logits against the
-    float32 model's, and prefill S + decode one against prefill S + 1."""
+    float32 model's, the float32 model through attn="flash" (``n_calls`` tf32
+    launches a prefill; :func:`float32_flash`) where the family attends, and
+    prefill S + decode one against prefill S + 1."""
     out = {}
     model, params = engine.model, engine.params
     # the same prefill again, warm (the served one was the process's first
@@ -1909,6 +2141,9 @@ def _family_checks(name: str, cfg, engine: ServeEngine, batch: dict, route, modu
     batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
     params32 = {k: v.float() for k, v in params.items()}
     l32, _ = model32.prefill(params32, batch32)
+    if route is not None:
+        out["float32_flash"] = float32_flash(f"families {name}", cfg32, params32, [batch32],
+                                             model32, [l32], n_calls)
     scale = float(l32.abs().max())
     drift = {"flash": float((lf - l32).abs().max()), "plain": float((lp - l32).abs().max())}
     if not (max(drift.values()) <= FAMILY_DRIFT * scale
@@ -2044,7 +2279,8 @@ def phase_whisper(seed: int, smi: str) -> tuple:
     report, routes = _family_serve("whisper", cfg, engine, prompts, WHISPER_NEW,
                                    {"frames": frames}, "sm90", 3 * cfg.n_layers, smi)
     batch = {"tokens": torch.as_tensor(prompts, device=DEVICE), "frames": frames}
-    report.update(_family_checks("whisper", cfg, engine, batch, "sm90", model_base))
+    report.update(_family_checks("whisper", cfg, engine, batch, "sm90", model_base,
+                                 3 * cfg.n_layers))
     report["seconds"] = time.perf_counter() - t0
     del engine
     torch.cuda.empty_cache()
@@ -2056,15 +2292,16 @@ ZAMBA2_ROUTE_PAIRS = 4  # warm prefills per route in the comparison below
 
 def _prefill_by_route(name: str, engine: ServeEngine, batch: dict, module, n_calls: int) -> dict:
     """Warm prefill ms with the path's flash calls on sm90, as served, and
-    with the same calls sent to the simt kernel, in turns (sm90, simt, simt,
-    sm90, ...): what the kernel's route is worth end to end."""
-    def simt(q, k, v, *, causal, window=0):
-        return fa._launch("simt", q, k, v, causal, window)
+    with the same calls sent to the tf32 kernel (which takes bf16 operands
+    that TMA cannot address), in turns (sm90, tf32, tf32, sm90, ...): what
+    the route is worth end to end."""
+    def tf32(q, k, v, *, causal, window=0):
+        return fa._launch("tf32", q, k, v, causal, window)
 
-    ms = {"sm90": [], "simt": []}
+    ms = {"sm90": [], "tf32": []}
     for i in range(ZAMBA2_ROUTE_PAIRS):
-        for r in (("sm90", "simt") if i % 2 == 0 else ("simt", "sm90")):
-            module.flash_attention = simt if r == "simt" else flash_attention
+        for r in (("sm90", "tf32") if i % 2 == 0 else ("tf32", "sm90")):
+            module.flash_attention = tf32 if r == "tf32" else flash_attention
             fa.reset_route_launches()
             try:
                 torch.cuda.synchronize()
@@ -2078,10 +2315,10 @@ def _prefill_by_route(name: str, engine: ServeEngine, batch: dict, module, n_cal
                 raise AssertionError(f"families {name}: a prefill sent to {r} launched "
                                      f"{fa.route_launches()}, want {n_calls} on {r}")
     med = {r: float(np.median(v)) for r, v in ms.items()}
-    log(f"families {name}: warm prefill with its {n_calls} flash calls on sm90 / on simt, in "
-        f"turns: medians {med['sm90']:.2f} / {med['simt']:.2f} ms (difference "
-        f"{med['simt'] - med['sm90']:.2f} ms; runs sm90 {[round(x, 2) for x in ms['sm90']]}, simt "
-        f"{[round(x, 2) for x in ms['simt']]})")
+    log(f"families {name}: warm prefill with its {n_calls} flash calls on sm90 / on tf32, in "
+        f"turns: medians {med['sm90']:.2f} / {med['tf32']:.2f} ms (difference "
+        f"{med['tf32'] - med['sm90']:.2f} ms; runs sm90 {[round(x, 2) for x in ms['sm90']]}, tf32 "
+        f"{[round(x, 2) for x in ms['tf32']]})")
     return {"ms": ms, "median_ms": med}
 
 
@@ -2107,7 +2344,7 @@ def phase_zamba2(seed: int, smi: str) -> tuple:
     log(f"families zamba2: prefill {report['prefill_ms']:.2f} ms on the sm90 route (738.87 ms "
         f"when this shape took the simt route, on an H100 80GB HBM3 at 700 W)")
     batch = {"tokens": torch.as_tensor(prompts, device=DEVICE)}
-    report.update(_family_checks("zamba2", cfg, engine, batch, "sm90", model_base))
+    report.update(_family_checks("zamba2", cfg, engine, batch, "sm90", model_base, n_groups))
     report["prefill_by_route"] = _prefill_by_route("zamba2", engine, batch, model_base, n_groups)
     report["seconds"] = time.perf_counter() - t0
     del engine
@@ -2233,11 +2470,11 @@ def phase_families(tmp: str, seed: int, smi: str) -> dict:
     out["zamba2"], r_z = phase_zamba2(seed, smi)
     out["mamba"], _ = phase_mamba(tmp, seed, smi)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 8)
-    # zamba2's shared attention on both routes (the path takes sm90), and
-    # whisper's encoder on sm90
+    # zamba2's shared attention on sm90 (the path's) and tf32, and whisper's
+    # encoder on sm90, in bf16
     zamba2 = (FAMILY_BATCH, LM_PROMPT, zamba2_2_7b.CONFIG.n_heads, zamba2_2_7b.CONFIG.hd, True)
     out["timed"] = {"sm90_zamba2": _time_flash(*zamba2, "sm90", gen),
-                    "simt_zamba2": _time_flash(*zamba2, "simt", gen),
+                    "tf32_zamba2": _time_flash(*zamba2, "tf32", gen),
                     "sm90_whisper": _time_flash(FAMILY_BATCH, WHISPER_FRAMES,
                                                 whisper_medium.CONFIG.n_heads,
                                                 whisper_medium.CONFIG.hd, False, "sm90", gen)}
@@ -2790,7 +3027,7 @@ def phase_mesh(tmp: str, seed: int, smi: str, dryruns: dict | None = None) -> di
         logits_one, _ = get_model(cfg, attn="flash").prefill(local, {"tokens": prompts})
         del cache
         prefill_err = _rel_err(logits_mesh, logits_one)
-        if routes != {"sm90": cfg.n_layers, "simt": 0}:
+        if routes != {"sm90": cfg.n_layers, "tf32": 0, "simt": 0}:
             raise AssertionError(f"mesh: the mesh prefill launched {routes}, want "
                                  f"{cfg.n_layers} sm90 launches")
         if not prefill_err <= MESH_PREFILL_TOL:
@@ -2871,7 +3108,7 @@ def _mesh_family_serve(name: str, cfg, engines, prompts, extra, head_dim: int, n
         runs[which]["launches"] = _build.launch_counts()["flash_attention"]
         runs[which]["routes"] = fa.route_launches()
     routes = runs["mesh"]["routes"]
-    if runs["mesh"]["launches"] != n_calls or routes != {"sm90": n_calls, "simt": 0}:
+    if runs["mesh"]["launches"] != n_calls or routes != {"sm90": n_calls, "tf32": 0, "simt": 0}:
         raise AssertionError(f"mesh families {name}: the mesh engine's prefill launched "
                              f"{runs['mesh']['launches']} flash calls by route {routes}, want "
                              f"{n_calls} on sm90")
@@ -3067,7 +3304,7 @@ def main() -> int:
     launches["hamming"] += phase_calibration()
     tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-serve-")
     try:
-        launches["flash_attention"], path_err = phase_serve(tmp, SEED)
+        launches["flash_attention"], path_err, serve32 = phase_serve(tmp, SEED)
         t8 = time.perf_counter()
         hub = phase_hub(tmp, SEED, smi)
         log(f"hub: phase 8 took {time.perf_counter() - t8:.1f} s")
@@ -3121,12 +3358,16 @@ def main() -> int:
             "card": smi,
         })
     # each flash route's row: the numbers at the largest shape of its path
-    # (sm90: phase 7's S 2032 prefill, D 128; simt: zamba2's shared attention,
-    # D 80, which no serving path takes), and per instance of sm90 its path's
-    # shape, launches and build report (D 128 phase 7, D 80 9b, D 64 9a)
+    # (sm90: phase 7's S 2032 bf16 prefill, D 128; tf32: the same shape in
+    # float32, phase 7's float32 prefill; simt: that float32 shape too, where
+    # it is timed beside tf32, and no path takes it), and per instance of sm90
+    # and tf32 its path's shape, launches and build report (sm90: D 128 phase
+    # 7, D 80 9b, D 64 9a; tf32: float32 D 128 phase 7, D 80 9b, D 64 9a, and
+    # bf16 D 256, which no path takes)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     timed = families["timed"]
     mf = mesh_families["launches"]
+    f32 = flash_reports["f32"]
     sm90_paths = {128: (flash_reports["sm90"], launches["flash_attention"], "phase 7 (serve)"),
                   80: (timed["sm90_zamba2"], families["zamba2"]["flash_launches"]["sm90"]
                        + mf["zamba2"]["sm90"],
@@ -3135,6 +3376,15 @@ def main() -> int:
                   64: (timed["sm90_whisper"], families["whisper"]["flash_launches"]["sm90"]
                        + mf["whisper"]["sm90"],
                        "phases 9a and 12a (whisper-medium, unsharded and on a (1, 1) mesh)")}
+    w32, z32 = (families[n]["float32_flash"] for n in ("whisper", "zamba2"))
+    tf32_paths = {(torch.float32, 128): (f32["phase 7"], serve32["launches"],
+                                         "phase 7 (the float32 model's prefills)"),
+                  (torch.float32, 80): (f32["zamba2"], z32["launches"],
+                                        "phase 9b (zamba2-2.7b's float32 prefill)"),
+                  (torch.float32, 64): (f32["whisper encoder"], w32["launches"],
+                                        "phase 9a (whisper-medium's float32 prefill)"),
+                  (torch.bfloat16, 256): (flash_reports["d256"], 0,
+                                          "phase 3 only: no path gives bf16 at D 256")}
     rows = {
         "sm90": {"main": flash_reports["sm90"],
                  "launches": sum(n for _, n, _ in sm90_paths.values())
@@ -3151,17 +3401,40 @@ def main() -> int:
                             timed["sm90_zamba2"]["max_abs_err"], timed["sm90_whisper"]["max_abs_err"],
                             families["whisper"]["flash_err"], families["zamba2"]["flash_err"],
                             *(r["flash_err"] for r in mesh_families["serve"].values()))},
-        "simt": {"main": timed["simt_zamba2"], "launches": flash_launches_phase3["simt"],
+        "tf32": {"main": flash_reports["tf32"],
+                 "launches": sum(n for _, n, _ in tf32_paths.values()),
+                 "launched_by": "phases 7, 9a and 9b (the float32 models' prefills through "
+                                "attn=flash); bf16 at D 16, 32 and 256 and operands TMA cannot "
+                                "address take it too, on no path of the smoke",
+                 "instance": tf32_instance(torch.float32, 128),
+                 "instances": {tf32_instance(dt, D): {
+                     **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
+                     **{k: r[k] for k in ("passes_bound_ms", "library_backend", "simt") if k in r},
+                     **build_info.get(tf32_instance(dt, D), {})}
+                     for (dt, D), (r, n, by) in tf32_paths.items()},
+                 "err": max(flash_reports["tf32"]["max_abs_err"], timed["tf32_zamba2"]["max_abs_err"],
+                            serve32["flash_err"], w32["flash_err"], z32["flash_err"],
+                            *(r["max_abs_err"] for r in f32.values()),
+                            flash_reports["d256"]["max_abs_err"]),
+                 "passes_bound_ms": flash_reports["tf32"]["passes_bound_ms"],
+                 "library_backend": flash_reports["tf32"]["library_backend"]},
+        "simt": {"main": flash_reports["simt"], "launches": flash_launches_phase3["simt"],
                  "launches_on_serving_paths": families["launches"]["simt"]
-                 + sum(r["simt"] for r in mf.values()),
-                 "launched_by": "phase 3 only (kernel checks and timings): no serving path "
-                                "takes it (bf16 at head dims 64, 80 and 128 takes sm90)",
-                 "instance": "flash_fwd_kernel<bf16,80,64>",
+                 + sum(r["simt"] for r in mf.values()) + serve32["launches_simt"]
+                 + w32["launches_simt"] + z32["launches_simt"],
+                 "launched_by": "phase 3 only (kernel checks and its timings beside tf32): no "
+                                "route picks it",
+                 "instance": "flash_fwd_kernel<f32,128,32>",
+                 "float32": {label: {"shape": r["shape"], **r["simt"]} for label, r in f32.items()},
+                 "bf16": {k: flash_reports["simt"]["bf16"][k] for k in keys + ("max_abs_err",)},
                  "err": max(flash_reports["simt"]["max_abs_err"],
-                            timed["simt_zamba2"]["max_abs_err"])},
+                            flash_reports["simt"]["bf16"]["max_abs_err"],
+                            flash_reports["d256"]["simt"]["max_abs_err"],
+                            *(r["simt"]["max_abs_err"] for r in f32.values()))},
     }
     for route, row in rows.items():
-        extra = {k: row[k] for k in ("instances", "launches_on_serving_paths") if k in row}
+        extra = {k: row[k] for k in ("instances", "launches_on_serving_paths", "passes_bound_ms",
+                                     "library_backend", "float32", "bf16") if k in row}
         kernels.append({
             **{k: FLASH[route][k] for k in ("name", "source")}, "route": "cuda",
             "replaces": FLASH_REPLACES, "flash_route": route,

@@ -13,8 +13,9 @@ PyTorch versions.
 Launch counts live here too: each wrapper calls :func:`launch` (the storage
 kernels' ``(*tensors, n, nb)`` convention) or :func:`launch_args` (any other
 launcher, such as flash attention's), which count one launch per kernel call
-that actually reached the card. A launcher that is a second route of a kernel
-(``zllm_flash_attention_sm90``) counts under that kernel's name.
+that actually reached the card. A launcher that is another route of a kernel
+(``zllm_flash_attention_sm90``, ``zllm_flash_attention_tf32``) counts under
+that kernel's name.
 
 ``nvcc`` runs with ``-Xptxas -v``; :func:`build_log` keeps what each source's
 compile printed (registers, shared memory and spills of every kernel).
@@ -40,7 +41,7 @@ __all__ = ["BUILD_DIR", "KERNELS", "SOURCES", "NVCC_FLAGS", "library", "library_
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "planes.cu", _PKG / "csrc" / "flash_attention.cu",
-           _PKG / "csrc" / "flash_attention_sm90.cu")
+           _PKG / "csrc" / "flash_attention_sm90.cu", _PKG / "csrc" / "flash_attention_tf32.cu")
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,9 +61,9 @@ _SIGNATURES = {
     # strides of q, k, v and o; causal, window, dtype code; the stream
     "flash_attention": (_P,) * 4 + (_N,) * 5 + (_N,) * 12 + (_NB,) * 3 + (_P,),
 }
-# launchers that are a second route of a kernel above: same signature, counted
-# under that kernel's name (csrc/flash_attention_sm90.cu)
-_COUNTED_AS = {"flash_attention_sm90": "flash_attention"}
+# launchers that are another route of a kernel above: same signature, counted
+# under that kernel's name (csrc/flash_attention_sm90.cu, flash_attention_tf32.cu)
+_COUNTED_AS = {"flash_attention_sm90": "flash_attention", "flash_attention_tf32": "flash_attention"}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

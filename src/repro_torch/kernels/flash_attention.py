@@ -5,16 +5,24 @@
 CUDA kernels, picked by :func:`route`: ``"sm90"`` (``csrc/flash_attention_sm90.cu``:
 bf16 tiles on the tensor cores through ``wgmma``, loaded by TMA) for bf16
 operands of head dim 64, 80 or 128 whose base pointers and B/S/H strides TMA
-can address (multiples of 16 bytes), and ``"simt"`` (``csrc/flash_attention.cu``:
-float32 FMAs) for every other call. Both take the reference's layout, q
-(B, Sq, H, D) and k, v (B, Sk, H, D) with grouped-query heads already expanded,
-in float32 or bfloat16, and read the operands in place through their strides
-(the last dim must be contiguous): no ``(B*H, S, D)`` transposes, no block-size
+can address (multiples of 16 bytes), and ``"tf32"``
+(``csrc/flash_attention_tf32.cu``: ``mma.sync`` on TF32 operands, three passes
+of a hi/lo split for float32, one exact pass for bf16) for every other call:
+float32 at any head dim, bf16 at head dims 16, 32 and 256, and bf16 operands
+TMA cannot address. Both take the reference's layout, q (B, Sq, H, D) and k, v
+(B, Sk, H, D) with grouped-query heads already expanded, in float32 or
+bfloat16, and read the operands in place through their strides (the last dim
+must be contiguous): no ``(B*H, S, D)`` transposes, no block-size
 divisibility, ragged Sq and Sk welcome. The kernels are forward-only, as the
 TPU kernel is, so an input that requires grad is refused. A tensor on the CPU
 takes the plain version :func:`repro_torch.kernels.ref.mha_reference`; a CUDA
 tensor launches its route's kernel on the current stream or raises (no route
-falls back to the other).
+falls back to another).
+
+The first port's float32-FMA kernel (``csrc/flash_attention.cu``, route
+``"simt"``) is no longer picked by :func:`route`; it stays built and
+launchable through ``_launch("simt", ...)`` so that it can be compared with
+the ``tf32`` kernel on one card.
 """
 
 from __future__ import annotations
@@ -32,9 +40,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535  # heads and batch ride the grid's y and z dims
 _TMA_ALIGN = 16         # bytes: a tensor map's base address and strides are multiples of it
 _TMA_STRIDE_LIMIT = 1 << 40  # bytes: and its strides are below it
-_LAUNCHER = {"sm90": "flash_attention_sm90", "simt": "flash_attention"}
+_LAUNCHER = {"sm90": "flash_attention_sm90", "tf32": "flash_attention_tf32",
+             "simt": "flash_attention"}
 
-# launches per route; _build counts both under "flash_attention"
+# launches per route; _build counts them all under "flash_attention"
 ROUTE_LAUNCHES = {name: 0 for name in _LAUNCHER}
 
 
@@ -72,17 +81,17 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     dim 64, 80 or 128, D contiguous, and every base pointer and every B/S/H byte
     stride is a positive multiple of 16 below 2^40 (what a TMA tensor map can
     address; a dim of extent 1 is never stepped, so its stride is free);
-    ``"simt"`` otherwise. Reads only dtypes, shapes, pointers and strides."""
+    ``"tf32"`` otherwise. Reads only dtypes, shapes, pointers and strides."""
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or q.shape[-1] not in SM90_HEAD_DIMS:
-        return "simt"
+        return "tf32"
     for t in (q, k, v):
         size = t.element_size()
         if t.stride(-1) != 1 or t.data_ptr() % _TMA_ALIGN:
-            return "simt"
+            return "tf32"
         for extent, stride in zip(t.shape[:3], t.stride()[:3]):
             if extent > 1 and not (0 < stride * size < _TMA_STRIDE_LIMIT
                                    and stride * size % _TMA_ALIGN == 0):
-                return "simt"
+                return "tf32"
     return "sm90"
 
 

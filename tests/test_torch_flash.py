@@ -147,14 +147,15 @@ def test_flash_plain_path_matches_jax_at_reference_head_dims(D, dtype):
 
 
 def test_head_dim_80_takes_the_simt_route():
-    """zamba2-2.7b's head dim 80 takes the SIMT kernel where the tensor cores
-    do not: in float32, and for a bf16 operand no tensor map can address (a
-    base pointer 2 bytes off a 16-byte boundary)."""
+    """zamba2-2.7b's head dim 80 takes the tf32 kernel (the route that took
+    over every call of the SIMT kernel) where the sm90 kernel does not: in
+    float32, and for a bf16 operand no tensor map can address (a base pointer
+    2 bytes off a 16-byte boundary)."""
     assert 80 in HEAD_DIMS
     q = torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16)
-    assert route(q.float(), q.float(), q.float()) == "simt"
+    assert route(q.float(), q.float(), q.float()) == "tf32"
     off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
-    assert off.data_ptr() % 16 == 2 and route(off, q, q) == "simt"
+    assert off.data_ptr() % 16 == 2 and route(off, q, q) == "tf32"
 
 
 def test_head_dim_80_takes_the_sm90_route():
@@ -203,7 +204,8 @@ def test_cuda_tensors_go_to_the_launcher(monkeypatch):
         with pytest.raises(RuntimeError, match="no card"):
             flash_attention(q, k, v, causal=True, window=3)
     (kernel, dev, args), = calls
-    assert kernel == "flash_attention" and dev == "cuda"
+    # bf16 at head dim 32 takes the tf32 route, whose launcher has the same C signature
+    assert kernel == "flash_attention_tf32" and dev == "cuda"
     fused = (5 * 12 * 32, 12 * 32, 32)
     out = (5 * 4 * 32, 4 * 32, 32)
     assert args == (2, 5, 5, 4, 32, *fused, *fused, *fused, *out, 1, 3, 1)

@@ -157,32 +157,32 @@ def test_route_takes_sm90_for_aligned_bf16(D):
 
 
 @pytest.mark.parametrize("D", [16, 32, 256])
-def test_route_takes_simt_for_other_head_dims(D):
+def test_route_takes_tf32_for_other_head_dims(D):
     q, k, v = (_bf16((1, 40, 2, D), s) for s in range(3))
-    assert fa.route(q, k, v) == "simt"
+    assert fa.route(q, k, v) == "tf32"
 
 
 @pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
-def test_route_takes_simt_for_float32(D):
+def test_route_takes_tf32_for_float32(D):
     q, k, v = (_bf16((1, 40, 2, D), s).float() for s in range(3))
-    assert fa.route(q, k, v) == "simt"
+    assert fa.route(q, k, v) == "tf32"
 
 
 @pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
-def test_route_takes_simt_for_what_tma_cannot_address(D):
+def test_route_takes_tf32_for_what_tma_cannot_address(D):
     q, k, v = (_bf16((1, 40, 2, D), s) for s in range(3))
     # a base pointer 2 bytes off a 16-byte boundary
     off = _bf16(q.numel() + 1)[1:].view(q.shape)
     assert off.data_ptr() % 16 == 2
-    assert fa.route(off, k, v) == fa.route(q, off, v) == fa.route(q, k, off) == "simt"
+    assert fa.route(off, k, v) == fa.route(q, off, v) == fa.route(q, k, off) == "tf32"
     # an S stride of D + 1 elements (not a multiple of 16 bytes)
     odd = _bf16((1, 40, 2, D + 1))[..., :D]
-    assert odd.data_ptr() % 16 == 0 and fa.route(odd, k, v) == "simt"
+    assert odd.data_ptr() % 16 == 0 and fa.route(odd, k, v) == "tf32"
     # heads broadcast with stride 0 (expand without a copy)
     bc = _bf16((1, 40, 1, D)).expand(1, 40, 2, D)
-    assert fa.route(q, bc, v) == "simt"
+    assert fa.route(q, bc, v) == "tf32"
     # a last dim that is not contiguous
-    assert fa.route(q, k, _bf16((1, 40, 2, 2 * D))[..., ::2]) == "simt"
+    assert fa.route(q, k, _bf16((1, 40, 2, 2 * D))[..., ::2]) == "tf32"
 
 
 def test_route_is_a_pure_rule_and_counts_nothing_on_the_cpu():
@@ -190,4 +190,4 @@ def test_route_is_a_pure_rule_and_counts_nothing_on_the_cpu():
     fa.reset_route_launches()
     assert fa.route(q, k, v) == fa.route(q, k, v) == "sm90"
     fa.flash_attention(q, k, v)  # the plain version: no kernel, no route count
-    assert fa.route_launches() == {"sm90": 0, "simt": 0}
+    assert fa.route_launches() == {"sm90": 0, "tf32": 0, "simt": 0}

@@ -1,5 +1,5 @@
 """The kernels of the port on the card against their plain PyTorch versions
-(the six storage kernels byte for byte, the bit counts exactly; both routes of
+(the six storage kernels byte for byte, the bit counts exactly; the routes of
 flash attention within the reference's tolerances, each call asserting the
 route it took), the device store path, the bit-distance calibration, the
 serving engine, the HTTP store server, one optimizer step against the CPU's
@@ -255,8 +255,9 @@ FLASH_CASES = [
     # 4 left-padded to 2032 (not a multiple of either tile) and to 512 tokens
     (4, 2032, 2032, 28, 128, True, 0),
     (4, 512, 512, 28, 128, True, 0),
-    # head dim 80 (zamba2-2.7b's shared attention; sm90 in bf16, and
-    # test_flash_attention_simt_at_head_dim_80 runs simt on the bf16 inputs):
+    # head dim 80 (zamba2-2.7b's shared attention; sm90 in bf16, tf32 in
+    # float32, and test_flash_attention_simt_at_head_dim_80 runs the first
+    # port's simt kernel on the bf16 inputs):
     # ragged, Sq != Sk, a window, and the family phase's prefill
     *FLASH_CASES_D80,
     # whisper-medium's three attentions at head dim 64: the encoder (1500
@@ -280,8 +281,8 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, Sq, Sk, H, D, causal, window = case
     q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), dtype, 20, cuda)
-    # contiguous new tensors: bf16 at D 64/80/128 takes the tensor cores
-    route = "sm90" if dtype == torch.bfloat16 and D in flash_attention.SM90_HEAD_DIMS else "simt"
+    # contiguous new tensors: bf16 at D 64/80/128 takes sm90, the rest tf32
+    route = "sm90" if dtype == torch.bfloat16 and D in flash_attention.SM90_HEAD_DIMS else "tf32"
     assert flash_attention.route(q, k, v) == route
     before = _build.launch_counts()["flash_attention"]
     by_route = flash_attention.route_launches()
@@ -298,15 +299,16 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
 
 @pytest.mark.parametrize("case", FLASH_CASES_D80)
 def test_flash_attention_simt_at_head_dim_80(cuda, case):
-    """The SIMT kernel on bf16 at D 80, which the wrapper now sends to sm90:
-    launched directly, it still matches the plain version."""
+    """The SIMT kernel on bf16 at D 80, which the wrapper sends to sm90 (and
+    picks for nothing since the tf32 route): launched directly, it still
+    matches the plain version."""
     B, Sq, Sk, H, D, causal, window = case
     q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), torch.bfloat16, 20, cuda)
     before = flash_attention.route_launches()
     got = flash_attention._launch("simt", q, k, v, causal, window)
     torch.cuda.synchronize()
     after = flash_attention.route_launches()
-    assert {r: after[r] - before[r] for r in after} == {"sm90": 0, "simt": 1}
+    assert {r: after[r] - before[r] for r in after} == {"sm90": 0, "tf32": 0, "simt": 1}
     want = ref.mha_reference(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
@@ -328,30 +330,52 @@ def test_flash_attention_reads_strided_operands(cuda, D):
 
 
 @pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
-def test_flash_attention_misaligned_slice_takes_simt(cuda, D):
+def test_flash_attention_misaligned_slice_takes_tf32(cuda, D):
     """A bf16 operand 2 bytes off a 16-byte boundary is one no tensor map can
-    address: the call takes the SIMT kernel and is still right."""
+    address: the call takes the tf32 kernel and is still right."""
     B, S, H = 2, 130, 4
     buf = torch.randn((B, S, H, D + 8), generator=torch.Generator(device="cuda").manual_seed(22),
                       device=cuda).to(torch.bfloat16)
     q = buf[..., 1:1 + D]
     k, v = (torch.randn((B, S, H, D), device=cuda).to(torch.bfloat16) for _ in range(2))
-    assert q.data_ptr() % 16 == 2 and flash_attention.route(q, k, v) == "simt"
+    assert q.data_ptr() % 16 == 2 and flash_attention.route(q, k, v) == "tf32"
     before = flash_attention.route_launches()
     got = flash_attention.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert flash_attention.route_launches()["simt"] - before["simt"] == 1
+    assert flash_attention.route_launches()["tf32"] - before["tf32"] == 1
     want = ref.mha_reference(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.float32, 2),
+                                          (torch.bfloat16, 1), (torch.bfloat16, 2),
+                                          (torch.bfloat16, 4)])
+def test_flash_attention_tf32_reads_any_alignment(cuda, dtype, offset, monkeypatch):
+    """The tf32 kernel copies tiles at the operands' common alignment (16, 8,
+    4 or 2 bytes): q a slice `offset` elements into wider rows, k heads
+    broadcast with stride 0; within the reference's tolerance."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for D in (16, 80, 128, 256):
+        g = torch.Generator(device="cuda").manual_seed(D + offset)
+        buf = torch.randn((2, 130, 4, D + 8), generator=g, device=cuda).to(dtype)
+        q = buf[..., offset:offset + D]
+        k = torch.randn((2, 130, 1, D), generator=g, device=cuda).to(dtype).expand(2, 130, 4, D)
+        v = torch.randn((2, 130, 4, D), generator=g, device=cuda).to(dtype)
+        assert flash_attention.route(q, k, v) == "tf32"
+        got = flash_attention.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), ref.mha_reference(q, k, v).float(), rtol=tol,
+                                   atol=tol)
+
+
 def test_flash_attention_route_rules_by_head_dim(cuda):
     """bf16 at D 64, 80 and 128 takes sm90; the other head dims, and float32
-    at any, take simt; both launch and match the plain version."""
+    at any, take tf32; both launch and match the plain version."""
     for D in flash_attention.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = _qkv((1, 70, 2, D), (1, 70, 2, D), dt, D, cuda)
-            want = "sm90" if dt == torch.bfloat16 and D in flash_attention.SM90_HEAD_DIMS else "simt"
+            want = "sm90" if dt == torch.bfloat16 and D in flash_attention.SM90_HEAD_DIMS else "tf32"
             assert flash_attention.route(q, k, v) == want
             before = flash_attention.route_launches()[want]
             got = flash_attention.flash_attention(q, k, v, causal=True)
@@ -394,9 +418,9 @@ def test_serve_engine_on_card(cuda):
     ids = [batcher.submit(p[: 10 + 7 * i]) for i, p in enumerate(prompts)]
     assert sorted(batcher.run_once()) == ids
     assert _build.launch_counts()["flash_attention"] == cfg.n_layers
-    # the smoke config's head dim is 16: every call takes the SIMT kernel
+    # the smoke config's head dim is 16: every call takes the tf32 kernel
     assert cfg.hd == 16
-    assert flash_attention.route_launches() == {"sm90": 0, "simt": cfg.n_layers}
+    assert flash_attention.route_launches() == {"sm90": 0, "tf32": cfg.n_layers, "simt": 0}
     for rid in ids:
         out = batcher.result(rid)
         assert out.shape == (5,) and ((0 <= out) & (out < cfg.vocab)).all()
