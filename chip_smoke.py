@@ -7,13 +7,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: require CUDA, print ``nvidia-smi`` name and power limit;
 2. build: compile ``src/repro_torch/kernels/csrc/planes.cu``,
-   ``flash_attention.cu``, ``flash_attention_sm90.cu`` and
-   ``flash_attention_tf32.cu`` with nvcc (with ``-Xptxas -v``), one process
-   per source, in parallel; print each flash kernel's registers and spills
-   and the count of its tensor-core instructions in its SASS (``cuobjdump
-   -sass``): ``HGMMA`` (wgmma), which every sm90 instance (D 64, 80, 128) must
-   hold, and ``HMMA`` (mma.sync), which every tf32 instance (each head dim in
-   float32 and bf16) must hold;
+   ``flash_attention_sm90.cu`` and ``flash_attention_tf32.cu`` with nvcc
+   (with ``-Xptxas -v``), one process per source, in parallel; print each
+   flash kernel's registers and spills and the count of its tensor-core
+   instructions in its SASS (``cuobjdump -sass``): ``HGMMA`` (wgmma), which
+   every sm90 instance (D 64, 80, 128) must hold with no spilled byte and no
+   wgmma that ptxas serialised, and ``HMMA`` (mma.sync), which every tf32
+   instance (each head dim in float32 and bf16) must hold;
 3. kernels: each of the six storage kernels against its plain PyTorch version
    on the card, byte for byte (bit counts exactly), at word widths 1/2/4/8 and
    awkward lengths (the word XOR also on operands off a 16-byte boundary and at
@@ -181,7 +181,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    each: the mesh's prefill logits bit-equal to the unsharded ones or within
    phase 3's bf16 tolerance of max |logits|, the tokens equal, its counted
    run exactly 72 ``sm90`` launches at D 64 (whisper) and 9 at D 80
-   (zamba2), none ``simt``, each call of a mesh prefill held against its
+   (zamba2), none on ``tf32``, each call of a mesh prefill held against its
    plain version on its own inputs; prefill ms and decode ms per step of
    both engines. 12b falcon-mamba-7b (2 of 64 layers) and zamba2-2.7b (6 of
    54 layers: one group and the shared block) at published widths, trained
@@ -192,25 +192,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``long_500k`` on the multi-pod mesh dry-run with 11b's cells. The results
    go on a JSON line of their own (``mesh_families``).
 
-Phase 3 also holds the flash-attention kernels (routes ``sm90`` and ``tf32``,
-and the first port's ``simt`` kernel, which no route picks any more) against
-their plain version (``ref.mha_reference``) at the reference tests' cases,
-ragged lengths, every head dim (80 included), Sq != Sk, bidirectional and
-windowed masks, fully masked rows, strided (fused-projection) and misaligned
-operands (float32 and bf16 slices 2-8 bytes off a 16-byte boundary) and heads
-broadcast with stride 0, asserting the route of each call (bf16 at D 64, 80
-and 128 with TMA-addressable operands takes ``sm90``, every other call
-``tf32``; at D 80 the ``simt`` kernel is also launched directly on the bf16
-cases). It times ``sm90`` at the shapes phase 7's prefills give the kernel
-(B 4, S 2032 and 512, H 28, D 128, bf16, causal) and at S 2048, ``simt`` at
-the first of them; ``tf32`` against ``simt`` in bf16 at D 256 (B 4, S 2048,
-H 16, causal); and, on float32 inputs, ``tf32`` against ``simt`` at phase
-7's (4, 2032, 28, 128, causal), zamba2-2.7b's (4, 1024, 32, 80, causal) and
-whisper-medium's encoder (4, 1500, 16, 64, bidirectional) shapes; each beside
-its bound (float32 at the TF32 rate, with the three passes' ceiling), the
-plain version and ``torch.nn.functional.scaled_dot_product_attention`` (on
-float32 inputs with TF32 off, the backend it dispatched to named), with the
-wrapper's host time per call. These are the smoke's only ``simt`` launches.
+Phase 3 also holds the flash-attention kernels (routes ``sm90`` and ``tf32``)
+against their plain version (``ref.mha_reference``) at the reference tests'
+cases, ragged lengths, every head dim (80 included), Sq != Sk, bidirectional
+and windowed masks, fully masked rows, the edges of the sm90 kernel's 64-key
+tiles, strided (fused-projection) and misaligned operands (float32 and bf16
+slices 2-8 bytes off a 16-byte boundary) and heads broadcast with stride 0,
+asserting the route of each call (bf16 at D 64, 80 and 128 with
+TMA-addressable operands takes ``sm90``, every other call ``tf32``). It times
+each ``sm90`` instance at its path's shape: D 128 at the shapes phase 7's
+prefills give the kernel (B 4, S 2032 and 512, H 28, causal) and at S 2048,
+D 80 at zamba2-2.7b's (4, 1024, 32, causal), D 64 at whisper-medium's
+encoder (4, 1500, 16, bidirectional); D 128 also at a 32k-token prompt (B 1,
+S 32768, H 28, causal), its rows 0-2047 held to the plain version on the
+first 2048 keys (exact by causality) and every row to SDPA's output; ``tf32``
+in bf16 at D 256 (B 4, S 2048, H 16, causal) and, on float32 inputs, at phase
+7's, zamba2-2.7b's and whisper-medium's encoder shapes; each beside its bound
+(float32 at the TF32 rate, with the three passes' ceiling), the plain version
+and ``torch.nn.functional.scaled_dot_product_attention`` (on float32 inputs
+with TF32 off, the backend it dispatched to named), with the wrapper's host
+time per call.
 
 The last lines are the lifecycle line, the hub server's line, the families
 line, the train line, the mesh line, the mesh families line, the card's name
@@ -292,14 +293,12 @@ KERNELS = {
 }
 SOURCE = "src/repro_torch/kernels/csrc/planes.cu"
 # the routes of the flash-attention wrapper (kernels/flash_attention.py::route
-# picks sm90 or tf32; the first port's simt kernel is launched directly, in
-# phase 3 only)
+# picks sm90 or tf32)
 FLASH = {
     "sm90": {"name": "flash_attention_sm90",
              "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"},
     "tf32": {"name": "flash_attention_tf32",
              "source": "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"},
-    "simt": {"name": "flash_attention", "source": "src/repro_torch/kernels/csrc/flash_attention.cu"},
 }
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:99"
 FLASH_LIBRARY = "torch.nn.functional.scaled_dot_product_attention"
@@ -504,8 +503,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
 # (B, Sq, Sk, H, D, causal, window): tests/test_flash_kernel.py:12-19 first,
 # then ragged lengths, every head dim, bidirectional and windowed masks; then
 # cases for the sm90 route (bf16 at D 64, 80 and 128): ragged Sq and Sk, Sq != Sk
-# causal and not, a window over ragged tiles, and fully masked rows at D 64
-# (rows from 23 on see no key in the window)
+# causal and not, a window over ragged tiles, fully masked rows at D 64
+# (rows from 23 on see no key in the window), and the edges of its 64-key
+# tiles and 64-row warpgroups
 FLASH_CASES = [
     (2, 256, 256, 4, 128, True, 0), (1, 512, 512, 2, 128, False, 0),
     (2, 256, 256, 4, 128, True, 64), (1, 1024, 1024, 1, 128, True, 0),
@@ -517,11 +517,18 @@ FLASH_CASES = [
     (2, 77, 77, 3, 128, True, 0), (1, 300, 170, 2, 64, True, 0),
     (1, 170, 300, 2, 128, False, 0), (1, 260, 260, 2, 64, True, 64),
     (1, 128, 16, 2, 64, False, 8),
-    # head dim 80 (zamba2-2.7b; sm90 in bf16, and phase 3 also launches simt
-    # on the bf16 inputs, tf32 in float32): ragged, Sq != Sk, a window; and
-    # whisper's cross attention, 64 decoder tokens to 1500 frames
+    # head dim 80 (zamba2-2.7b; sm90 in bf16, tf32 in float32): ragged, Sq !=
+    # Sk, a window; and whisper's cross attention, 64 decoder tokens to 1500 frames
     (2, 333, 333, 4, 80, True, 0), (1, 64, 300, 2, 80, False, 0), (1, 200, 200, 2, 80, True, 64),
     (2, 64, 1500, 16, 64, False, 0),
+    # Sk one short of, at and one past a 64-key tile (and of two); windows of
+    # 63, 64 and 65; a 64-row causal diagonal; rows from 47 on fully masked;
+    (1, 100, 63, 2, 64, False, 0), (1, 100, 64, 2, 80, False, 0), (1, 100, 65, 2, 128, False, 0),
+    (1, 127, 127, 2, 128, True, 0), (1, 129, 129, 2, 64, True, 0),
+    (1, 200, 200, 2, 64, True, 63), (1, 200, 200, 2, 80, False, 64), (1, 200, 200, 2, 128, True, 65),
+    (2, 64, 64, 3, 128, True, 0), (1, 192, 40, 2, 64, False, 8),
+    # and of the 128-key tiles of D 64
+    (1, 150, 128, 2, 64, False, 0), (1, 255, 255, 2, 64, True, 0), (1, 150, 257, 2, 64, False, 0),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_flash_kernel.py:33
 # (B, S) of the timed shapes, all bf16 causal at Qwen2-7B's 28 query heads of
@@ -532,13 +539,21 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_flash_kern
 FLASH_TIMED = ((4, 2032), (4, 512), (4, 2048))
 FLASH_H, FLASH_D = 28, 128
 # float32 shapes the tf32 route is timed at (B, S, H, D, causal), each beside
-# the simt kernel it replaces, the plain version and SDPA on float32 inputs:
+# the plain version and SDPA on float32 inputs:
 # phase 7's larger prefill, zamba2-2.7b's shared attention (phase 9b) and
 # whisper-medium's encoder (phase 9a). The first is the kernels line's.
 FLASH_TIMED_F32 = {"phase 7": (4, 2032, 28, 128, True), "zamba2": (4, 1024, 32, 80, True),
                    "whisper encoder": (4, 1500, 16, 64, False)}
-# bf16 at head dim 256 (the tf32 route's one pass) against simt
+# bf16 at head dim 256 (the tf32 route's one pass)
 FLASH_TIMED_D256 = (4, 2048, 16, 256, True)
+# the other sm90 instances at their paths' shapes (B, S, H, D, causal):
+# zamba2-2.7b's shared attention (phase 9b) and whisper-medium's encoder (9a)
+FLASH_TIMED_SM90 = {80: (4, 1024, 32, 80, True), 64: (4, 1500, 16, 64, False)}
+# a 32k-token prompt at Qwen2-7B's heads (the dry run's prefill_32k length):
+# the plain version of every row would not fit on the card, so rows below
+# FLASH_LONG_CHECKED are held to it on that many keys, every row to SDPA
+FLASH_LONG = (1, 32768, 28, 128, True)
+FLASH_LONG_CHECKED = 2048
 # operand offsets (in elements from a 16-byte boundary) of the misaligned
 # slices the tf32 route reads: its copies are 16, 8, 4 or 2 bytes wide
 FLASH_OFFSETS = ((torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 1),
@@ -610,8 +625,8 @@ def sdpa_backend(q, k, v, causal: bool) -> str:
 
 def time_flash_f32(label: str, B: int, S: int, H: int, D: int, causal: bool,
                    gen: torch.Generator) -> dict:
-    """The tf32 route at a float32 shape beside the simt kernel it replaces,
-    the plain version and SDPA on the same float32 inputs (TF32 off)."""
+    """The tf32 route at a float32 shape beside the plain version and SDPA on
+    the same float32 inputs (TF32 off)."""
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE) for _ in range(3))
     tf32 = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
     r = {"shape": [B, S, H, D], "causal": causal, "dtype": "float32",
@@ -626,15 +641,11 @@ def time_flash_f32(label: str, B: int, S: int, H: int, D: int, causal: bool,
     r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal, torch.float32)
     r["passes_bound_ms"], _ = flash_bound(B, S, H, D, causal, torch.float32, passes=3)
     mode = "causal" if causal else "bidirectional"
-    fn = lambda: fa._launch("simt", q, k, v, causal, 0)  # noqa: E731
-    r["simt"] = {"max_abs_err": held_to_plain(fn(), q, k, v, causal), "ms": cuda_ms(fn)}
     log(f"kernel flash_attention_tf32 (tf32): {r['ms']:.4f} ms at {label} B={B} S={S} H={H} "
         f"D={D} float32 {mode} (bound {r['bound_ms']:.4f} ms by {r['bound_by']} at 495 TFLOP/s "
         f"TF32, {r['bound_ms'] / r['ms']:.1%} of it; three passes' ceiling "
         f"{r['passes_bound_ms']:.4f} ms, {r['passes_bound_ms'] / r['ms']:.1%} of it); host "
-        f"{r['host_us']:.1f} us per call; simt {r['simt']['ms']:.4f} ms "
-        f"({r['simt']['ms'] / r['ms']:.2f}x the tf32 kernel's time, max_abs_err "
-        f"{r['simt']['max_abs_err']:.3e}); plain version {r['plain_ms']:.4f} ms; library: "
+        f"{r['host_us']:.1f} us per call; plain version {r['plain_ms']:.4f} ms; library: "
         f"{FLASH_LIBRARY} float32 ({r['library_backend']}, allow_tf32 off) {r['library_ms']:.4f} ms "
         f"({r['library_ms'] / r['ms']:.2f}x the kernel's speed); max_abs_err "
         f"{r['max_abs_err']:.3e} (tolerance 2e-5)")
@@ -643,11 +654,49 @@ def time_flash_f32(label: str, B: int, S: int, H: int, D: int, causal: bool,
     return r
 
 
+def time_flash_long(gen: torch.Generator) -> dict:
+    """sm90 at FLASH_LONG beside SDPA: rows below FLASH_LONG_CHECKED held to
+    the plain version on that many keys (exact by causality: no later key
+    reaches them), every row within the bf16 tolerance of SDPA's output."""
+    B, S, H, D, causal = FLASH_LONG
+    n = FLASH_LONG_CHECKED
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+               for _ in range(3))
+    if fa.route(q, k, v) != "sm90":
+        raise AssertionError(f"flash_attention at {FLASH_LONG} takes route {fa.route(q, k, v)}")
+    fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    got = fn()
+    err = held_to_plain(got[:, :n], q[:, :n], k[:, :n], v[:, :n], causal)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal)
+    want = sdpa().transpose(1, 2).float()
+    diff = (got.float() - want).abs()
+    tol = FLASH_TOL[torch.bfloat16]
+    if not bool((diff <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"flash_attention at {FLASH_LONG}: max |kernel - SDPA| "
+                             f"{float(diff.max())} past the bf16 tolerance")
+    r = {"shape": [B, S, H, D], "causal": causal, "max_abs_err": err,
+         "sdpa_abs_err": float(diff.max()), "plain_rows": n, "ms": cuda_ms(fn),
+         "host_us": host_us(fn, iters=5), "library_ms": cuda_ms(sdpa)}
+    r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal)
+    del q, k, v, qt, kt, vt, got, want, diff
+    log(f"kernel {FLASH['sm90']['name']} (sm90): {r['ms']:.4f} ms at B={B} S={S} H={H} D={D} "
+        f"bf16 causal (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+        f"{r['bound_ms'] / r['ms']:.1%} of it); library: {FLASH_LIBRARY} {r['library_ms']:.4f} ms "
+        f"({r['library_ms'] / r['ms']:.2f}x the kernel's speed); rows 0-{n - 1} held to the plain "
+        f"version on keys 0-{n - 1}: max_abs_err {err:.3e}; every row against SDPA's output: "
+        f"max_abs_err {r['sdpa_abs_err']:.3e} (tolerance 2e-2)")
+    torch.cuda.empty_cache()
+    return r
+
+
 def phase_flash(gen: torch.Generator) -> dict:
     """The flash kernels against their plain version; their times at the
     serving path's shapes. Returns each route's report entry (sm90: phase 7's
-    bf16 S 2032 shape; tf32: its float32 twin; simt: that float32 shape too)
-    and, under "f32" and "d256", every float32 and the D 256 timing."""
+    bf16 S 2032 shape; tf32: its float32 twin) and, under "sm90_80",
+    "sm90_64", "sm90_long", "f32" and "d256", the other sm90 instances, the
+    32k row, every float32 and the D 256 timing."""
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     bf16 = torch.bfloat16
     fa.reset_route_launches()
@@ -660,11 +709,6 @@ def phase_flash(gen: torch.Generator) -> dict:
             key = (str(dt).split(".")[-1], flash_route(dt, D))
             worst[key] = max(worst.get(key, 0.0),
                              flash_checked(q, k, v, causal, window, route=key[1])[1])
-            if D == 80 and dt == bf16:
-                # the simt kernel at D 80 in bf16, which the wrapper sends to sm90
-                err = held_to_plain(fa._launch("simt", q, k, v, causal, window), q, k, v, causal,
-                                    window)
-                worst[("bfloat16", "simt")] = max(worst.get(("bfloat16", "simt"), 0.0), err)
     for D in fa.SM90_HEAD_DIMS:
         # slices of one fused (B, S, 3H, D) projection, read in place by TMA;
         # a slice 2 bytes off a 16-byte boundary, which no tensor map addresses
@@ -688,7 +732,8 @@ def phase_flash(gen: torch.Generator) -> dict:
     launches = fa.route_launches()
     log(f"kernel flash_attention: every route equal to its plain version at "
         f"{len(FLASH_CASES)} shapes x 2 dtypes (D in {{16, 32, 64, 80, 128, 256}}, ragged 33/77/1000, "
-        f"causal, bidirectional, window 64, Sq != Sk both ways, fully masked rows), on "
+        f"causal, bidirectional, windows 63-65, Sq != Sk both ways, fully masked rows, Sk at "
+        f"63-65, 127-129 and 255-257), on "
         f"fused-projection and misaligned slices (offsets {[(str(d)[6:], o) for d, o in FLASH_OFFSETS]} "
         f"elements, heads broadcast with stride 0); each call's route asserted; launches by route "
         f"{launches}; max_abs_err "
@@ -700,12 +745,8 @@ def phase_flash(gen: torch.Generator) -> dict:
     for B, S in FLASH_TIMED:
         q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(bf16)
                    for _ in range(3))
-        # the simt kernel only at the first shape
         calls = {"sm90": lambda: flash_attention(q, k, v, causal=True)}
         errs = {"sm90": flash_checked(q, k, v, True, route="sm90")[1]}
-        if (B, S) == FLASH_TIMED[0]:
-            calls["simt"] = lambda: fa._launch("simt", q, k, v, True, 0)
-            errs["simt"] = held_to_plain(calls["simt"](), q, k, v, True)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, S, D), same storage
         shared = {"shape": [B, S, H, D],
                   "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=True), iters=3),
@@ -724,17 +765,18 @@ def phase_flash(gen: torch.Generator) -> dict:
             reports.setdefault(f"{route}_bf16", r)
         del q, k, v, qt, kt, vt
     reports["sm90"] = reports.pop("sm90_bf16")
+    for D_, shape in FLASH_TIMED_SM90.items():
+        reports[f"sm90_{D_}"] = _time_flash(*shape, "sm90", gen)
+    reports["sm90_long"] = time_flash_long(gen)
 
-    # bf16 at D 256: the tf32 route's one pass against simt
+    # bf16 at D 256: the tf32 route's one pass
     B, S, H256, D256, causal = FLASH_TIMED_D256
     q, k, v = (torch.randn((B, S, H256, D256), generator=gen, device=DEVICE).to(bf16)
                for _ in range(3))
     tf32 = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
-    simt = lambda: fa._launch("simt", q, k, v, causal, 0)  # noqa: E731
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     d256 = {"shape": [B, S, H256, D256], "dtype": "bfloat16",
             "max_abs_err": flash_checked(q, k, v, causal, route="tf32")[1],
-            "simt": {"max_abs_err": held_to_plain(simt(), q, k, v, causal), "ms": cuda_ms(simt)},
             "ms": cuda_ms(tf32), "host_us": host_us(tf32),
             "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal), iters=3),
             "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -742,21 +784,15 @@ def phase_flash(gen: torch.Generator) -> dict:
     d256["bound_ms"], d256["bound_by"] = flash_bound(B, S, H256, D256, causal)
     log(f"kernel flash_attention_tf32 (tf32): {d256['ms']:.4f} ms at B={B} S={S} H={H256} "
         f"D={D256} bf16 causal, one pass (bound {d256['bound_ms']:.4f} ms by {d256['bound_by']} at "
-        f"989 TFLOP/s bf16, {d256['bound_ms'] / d256['ms']:.1%} of it); simt "
-        f"{d256['simt']['ms']:.4f} ms ({d256['simt']['ms'] / d256['ms']:.2f}x the tf32 kernel's "
-        f"time); plain version {d256['plain_ms']:.4f} ms; library: {FLASH_LIBRARY} "
+        f"989 TFLOP/s bf16, {d256['bound_ms'] / d256['ms']:.1%} of it); plain version "
+        f"{d256['plain_ms']:.4f} ms; library: {FLASH_LIBRARY} "
         f"{d256['library_ms']:.4f} ms; max_abs_err {d256['max_abs_err']:.3e} (tolerance 2e-2)")
     del q, k, v, qt, kt, vt
 
-    # float32 at the families' shapes: tf32 against simt, the plain version and SDPA
+    # float32 at the families' shapes: tf32 beside the plain version and SDPA
     f32 = {label: time_flash_f32(label, *shape, gen)
            for label, shape in FLASH_TIMED_F32.items()}
-    first = f32["phase 7"]
-    reports["tf32"] = first
-    reports["simt"] = {**{k: first[k] for k in ("shape", "plain_ms", "library_ms", "bound_ms",
-                                                "bound_by")},
-                       **first["simt"], "host_us": None,
-                       "bf16": reports.pop("simt_bf16")}
+    reports["tf32"] = f32["phase 7"]
     reports["f32"], reports["d256"] = f32, d256
     torch.cuda.empty_cache()
     return reports
@@ -765,12 +801,12 @@ def phase_flash(gen: torch.Generator) -> dict:
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SERIAL = re.compile(r"wgmma.mma_async instructions are serialized.*function '(\w+)'")
 
 
 def _kernel_name(mangled: str) -> str:
-    """flash_fwd_sm90_kernel<128>, flash_fwd_kernel<bf16,128,32>,
-    flash_fwd_tf32_kernel<f32,128,32,3>, ... from a mangled flash kernel name;
-    other names as they are."""
+    """flash_fwd_sm90_kernel<128>, flash_fwd_tf32_kernel<f32,128,32,3>, ...
+    from a mangled flash kernel name; other names as they are."""
     m = re.search(r"(flash_fwd\w*?_kernel)I(.+?)EEv", mangled)
     if not m:
         return mangled
@@ -789,26 +825,31 @@ def _cuobjdump():
 
 
 def flash_build_report() -> dict:
-    """Per flash kernel instance: registers and spilled bytes (from the build's
-    ``-Xptxas -v``) and its tensor-core instructions in its SASS (``cuobjdump
-    -sass``): HGMMA (wgmma) and HMMA (mma.sync). Raises if an sm90 instance
-    (one per head dim of the route) is missing or holds no HGMMA, or a tf32
-    instance (one per head dim and dtype) none or no HMMA."""
+    """Per flash kernel instance: registers, spilled bytes and whether ptxas
+    serialised its wgmma (from the build's ``-Xptxas -v``) and its tensor-core
+    instructions in its SASS (``cuobjdump -sass``): HGMMA (wgmma) and HMMA
+    (mma.sync). Raises if an sm90 instance (one per head dim of the route) is
+    missing, holds no HGMMA, spills or had its wgmma serialised, or a tf32
+    instance (one per head dim and dtype) is missing or holds no HMMA."""
     info = {}
-    blank = {"registers": None, "spill_stores": None, "spill_loads": None, "hgmma": None,
-             "hmma": None}
+    blank = {"registers": None, "spill_stores": None, "spill_loads": None,
+             "wgmma_serialized": None, "hgmma": None, "hmma": None}
+    serialized = set()
     for src, text in _build.build_log().items():
         if not src.startswith("flash_attention"):
             continue
         name = None
         for line in text.splitlines():
-            if (m := _PTXAS_ENTRY.search(line)):
+            if (m := _PTXAS_SERIAL.search(line)):
+                serialized.add(_kernel_name(m.group(1)))
+            elif (m := _PTXAS_ENTRY.search(line)):
                 name = _kernel_name(m.group(1))
                 info[name] = dict(blank)
             elif name and (m := _PTXAS_SPILL.search(line)):
                 info[name]["spill_stores"], info[name]["spill_loads"] = map(int, m.groups())
             elif name and (m := _PTXAS_REGS.search(line)):
                 info[name]["registers"] = int(m.group(1))
+                info[name]["wgmma_serialized"] = name in serialized
     tool = _cuobjdump()
     sass = None
     if tool:
@@ -830,10 +871,17 @@ def flash_build_report() -> dict:
         regs = ("not captured (the library was built by an earlier process)"
                 if r["registers"] is None else
                 f"{r['registers']} registers, spills {r['spill_stores']} bytes stored, "
-                f"{r['spill_loads']} bytes loaded")
+                f"{r['spill_loads']} bytes loaded"
+                + ("; ptxas serialised its wgmma" if r["wgmma_serialized"] else ""))
         mma = ("not available (no cuobjdump)" if r["hgmma"] is None else
                f"HGMMA {r['hgmma']}, HMMA {r['hmma']}")
         log(f"build: {name}: {regs}; tensor-core instructions in its SASS: {mma}")
+    for D in fa.SM90_HEAD_DIMS:
+        r = info.get(f"flash_fwd_sm90_kernel<{D}>", blank)
+        if r["registers"] is not None and (r["spill_stores"] or r["spill_loads"]
+                                           or r["wgmma_serialized"]):
+            raise AssertionError(f"flash_fwd_sm90_kernel<{D}> spills or has its wgmma "
+                                 f"serialised: {r}")
     if sass is not None:
         sm90 = {D: info.get(f"flash_fwd_sm90_kernel<{D}>", {}).get("hgmma")
                 for D in fa.SM90_HEAD_DIMS}
@@ -1486,7 +1534,7 @@ def phase_serve(tmp: str, seed: int) -> tuple:
     routes = fa.route_launches()
     peak = torch.cuda.max_memory_allocated()
     n_prefills = -(-len(prompts) // SERVE_BATCH)
-    if launches != SERVE_LAYERS * n_prefills or routes != {"sm90": launches, "tf32": 0, "simt": 0}:
+    if launches != SERVE_LAYERS * n_prefills or routes != {"sm90": launches, "tf32": 0}:
         raise AssertionError(f"serve: {launches} flash launches (by route {routes}), want "
                              f"{SERVE_LAYERS} layers x {n_prefills} prefills, all sm90")
     for t in toks:
@@ -1620,7 +1668,7 @@ def float32_flash(name: str, cfg32, params32: dict, batches: list, plain32, logi
         raise AssertionError(f"{name} float32 flash: logits {logit_err} from the plain model's "
                              f"(allowed {F32_LOGIT_TOL} x {scale}), greedy tokens equal: {same}")
     per = {"flash": list(flash_ms), "plain": [timed(plain32, b)[1] for b in batches]}
-    r = {"launches": want["tf32"], "launches_simt": routes["simt"], "flash_err": max(errs),
+    r = {"launches": want["tf32"], "flash_err": max(errs),
          "logit_err": logit_err,
          "logit_scale": scale, "tokens_equal": same, "prefill_ms": per}
     log(f"{name}: float32 model with attn=flash: {want['tf32']} tf32 launches ({n_calls} a "
@@ -2341,8 +2389,7 @@ def phase_zamba2(seed: int, smi: str) -> tuple:
     del params
     report, routes = _family_serve("zamba2", cfg, engine, prompts, LM_NEW, None, "sm90",
                                    n_groups, smi)
-    log(f"families zamba2: prefill {report['prefill_ms']:.2f} ms on the sm90 route (738.87 ms "
-        f"when this shape took the simt route, on an H100 80GB HBM3 at 700 W)")
+    log(f"families zamba2: prefill {report['prefill_ms']:.2f} ms on the sm90 route")
     batch = {"tokens": torch.as_tensor(prompts, device=DEVICE)}
     report.update(_family_checks("zamba2", cfg, engine, batch, "sm90", model_base, n_groups))
     report["prefill_by_route"] = _prefill_by_route("zamba2", engine, batch, model_base, n_groups)
@@ -2470,14 +2517,9 @@ def phase_families(tmp: str, seed: int, smi: str) -> dict:
     out["zamba2"], r_z = phase_zamba2(seed, smi)
     out["mamba"], _ = phase_mamba(tmp, seed, smi)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 8)
-    # zamba2's shared attention on sm90 (the path's) and tf32, and whisper's
-    # encoder on sm90, in bf16
+    # zamba2's shared attention on tf32 in bf16 (phase 3 times it on sm90)
     zamba2 = (FAMILY_BATCH, LM_PROMPT, zamba2_2_7b.CONFIG.n_heads, zamba2_2_7b.CONFIG.hd, True)
-    out["timed"] = {"sm90_zamba2": _time_flash(*zamba2, "sm90", gen),
-                    "tf32_zamba2": _time_flash(*zamba2, "tf32", gen),
-                    "sm90_whisper": _time_flash(FAMILY_BATCH, WHISPER_FRAMES,
-                                                whisper_medium.CONFIG.n_heads,
-                                                whisper_medium.CONFIG.hd, False, "sm90", gen)}
+    out["timed"] = {"tf32_zamba2": _time_flash(*zamba2, "tf32", gen)}
     out["launches"] = {r: r_w[r] + r_z[r] for r in r_w}
     out["seconds"] = time.perf_counter() - t0
     log(f"families: phase 9 took {out['seconds']:.1f} s (whisper {out['whisper']['seconds']:.1f}, "
@@ -3027,7 +3069,7 @@ def phase_mesh(tmp: str, seed: int, smi: str, dryruns: dict | None = None) -> di
         logits_one, _ = get_model(cfg, attn="flash").prefill(local, {"tokens": prompts})
         del cache
         prefill_err = _rel_err(logits_mesh, logits_one)
-        if routes != {"sm90": cfg.n_layers, "tf32": 0, "simt": 0}:
+        if routes != {"sm90": cfg.n_layers, "tf32": 0}:
             raise AssertionError(f"mesh: the mesh prefill launched {routes}, want "
                                  f"{cfg.n_layers} sm90 launches")
         if not prefill_err <= MESH_PREFILL_TOL:
@@ -3108,7 +3150,7 @@ def _mesh_family_serve(name: str, cfg, engines, prompts, extra, head_dim: int, n
         runs[which]["launches"] = _build.launch_counts()["flash_attention"]
         runs[which]["routes"] = fa.route_launches()
     routes = runs["mesh"]["routes"]
-    if runs["mesh"]["launches"] != n_calls or routes != {"sm90": n_calls, "tf32": 0, "simt": 0}:
+    if runs["mesh"]["launches"] != n_calls or routes != {"sm90": n_calls, "tf32": 0}:
         raise AssertionError(f"mesh families {name}: the mesh engine's prefill launched "
                              f"{runs['mesh']['launches']} flash calls by route {routes}, want "
                              f"{n_calls} on sm90")
@@ -3290,7 +3332,6 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     report = phase_kernels(gen)
     flash_reports = phase_flash(gen)
-    flash_launches_phase3 = fa.route_launches()  # checks and timings, by route
     tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-")
     try:
         launches = phase_store(tmp, SEED)
@@ -3359,23 +3400,23 @@ def main() -> int:
         })
     # each flash route's row: the numbers at the largest shape of its path
     # (sm90: phase 7's S 2032 bf16 prefill, D 128; tf32: the same shape in
-    # float32, phase 7's float32 prefill; simt: that float32 shape too, where
-    # it is timed beside tf32, and no path takes it), and per instance of sm90
-    # and tf32 its path's shape, launches and build report (sm90: D 128 phase
-    # 7, D 80 9b, D 64 9a; tf32: float32 D 128 phase 7, D 80 9b, D 64 9a, and
-    # bf16 D 256, which no path takes)
+    # float32, phase 7's float32 prefill), and per instance its path's shape,
+    # launches and build report (sm90: D 128 phase 7, D 80 9b, D 64 9a, each
+    # timed in phase 3, and D 128 at a 32k-token prompt; tf32: float32 D 128
+    # phase 7, D 80 9b, D 64 9a, and bf16 D 256, which no path takes)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     timed = families["timed"]
     mf = mesh_families["launches"]
     f32 = flash_reports["f32"]
     sm90_paths = {128: (flash_reports["sm90"], launches["flash_attention"], "phase 7 (serve)"),
-                  80: (timed["sm90_zamba2"], families["zamba2"]["flash_launches"]["sm90"]
+                  80: (flash_reports["sm90_80"], families["zamba2"]["flash_launches"]["sm90"]
                        + mf["zamba2"]["sm90"],
                        "phases 9b and 12a (zamba2-2.7b's shared attention, unsharded and on a "
                        "(1, 1) mesh)"),
-                  64: (timed["sm90_whisper"], families["whisper"]["flash_launches"]["sm90"]
+                  64: (flash_reports["sm90_64"], families["whisper"]["flash_launches"]["sm90"]
                        + mf["whisper"]["sm90"],
                        "phases 9a and 12a (whisper-medium, unsharded and on a (1, 1) mesh)")}
+    long = flash_reports["sm90_long"]
     w32, z32 = (families[n]["float32_flash"] for n in ("whisper", "zamba2"))
     tf32_paths = {(torch.float32, 128): (f32["phase 7"], serve32["launches"],
                                          "phase 7 (the float32 model's prefills)"),
@@ -3397,8 +3438,14 @@ def main() -> int:
                      **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
                      **build_info.get(f"flash_fwd_sm90_kernel<{D}>", {})}
                      for D, (r, n, by) in sm90_paths.items()},
+                 "long_prompt": {**{k: long[k] for k in keys if k != "plain_ms"},
+                                 "plain_ms": None, "launches": 0,
+                                 "launched_by": "phase 3 only (the dry run's prefill_32k length)",
+                                 **{k: long[k] for k in ("max_abs_err", "sdpa_abs_err",
+                                                         "plain_rows")}},
                  "err": max(flash_reports["sm90"]["max_abs_err"], path_err,
-                            timed["sm90_zamba2"]["max_abs_err"], timed["sm90_whisper"]["max_abs_err"],
+                            flash_reports["sm90_80"]["max_abs_err"],
+                            flash_reports["sm90_64"]["max_abs_err"], long["max_abs_err"],
                             families["whisper"]["flash_err"], families["zamba2"]["flash_err"],
                             *(r["flash_err"] for r in mesh_families["serve"].values()))},
         "tf32": {"main": flash_reports["tf32"],
@@ -3409,7 +3456,7 @@ def main() -> int:
                  "instance": tf32_instance(torch.float32, 128),
                  "instances": {tf32_instance(dt, D): {
                      **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
-                     **{k: r[k] for k in ("passes_bound_ms", "library_backend", "simt") if k in r},
+                     **{k: r[k] for k in ("passes_bound_ms", "library_backend") if k in r},
                      **build_info.get(tf32_instance(dt, D), {})}
                      for (dt, D), (r, n, by) in tf32_paths.items()},
                  "err": max(flash_reports["tf32"]["max_abs_err"], timed["tf32_zamba2"]["max_abs_err"],
@@ -3418,23 +3465,10 @@ def main() -> int:
                             flash_reports["d256"]["max_abs_err"]),
                  "passes_bound_ms": flash_reports["tf32"]["passes_bound_ms"],
                  "library_backend": flash_reports["tf32"]["library_backend"]},
-        "simt": {"main": flash_reports["simt"], "launches": flash_launches_phase3["simt"],
-                 "launches_on_serving_paths": families["launches"]["simt"]
-                 + sum(r["simt"] for r in mf.values()) + serve32["launches_simt"]
-                 + w32["launches_simt"] + z32["launches_simt"],
-                 "launched_by": "phase 3 only (kernel checks and its timings beside tf32): no "
-                                "route picks it",
-                 "instance": "flash_fwd_kernel<f32,128,32>",
-                 "float32": {label: {"shape": r["shape"], **r["simt"]} for label, r in f32.items()},
-                 "bf16": {k: flash_reports["simt"]["bf16"][k] for k in keys + ("max_abs_err",)},
-                 "err": max(flash_reports["simt"]["max_abs_err"],
-                            flash_reports["simt"]["bf16"]["max_abs_err"],
-                            flash_reports["d256"]["simt"]["max_abs_err"],
-                            *(r["simt"]["max_abs_err"] for r in f32.values()))},
     }
     for route, row in rows.items():
-        extra = {k: row[k] for k in ("instances", "launches_on_serving_paths", "passes_bound_ms",
-                                     "library_backend", "float32", "bf16") if k in row}
+        extra = {k: row[k] for k in ("instances", "long_prompt", "passes_bound_ms",
+                                     "library_backend") if k in row}
         kernels.append({
             **{k: FLASH[route][k] for k in ("name", "source")}, "route": "cuda",
             "replaces": FLASH_REPLACES, "flash_route": route,

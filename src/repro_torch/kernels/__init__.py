@@ -7,9 +7,11 @@ Storage-path kernels, CUDA C++ for ``sm_90a`` in ``csrc/planes.cu``:
   byte_planes.py  — ZipNN byte-plane shuffle (the no-family fallback)
   hamming.py      — XOR + popcount + per-block sum: the bit distance (paper Eq. 1)
 
-Model-path kernel, CUDA C++ for ``sm_90a`` in ``csrc/flash_attention.cu``:
+Model-path kernel, CUDA C++ for ``sm_90a`` in two routes,
+``csrc/flash_attention_sm90.cu`` (wgmma, bf16 at head dims 64, 80, 128) and
+``csrc/flash_attention_tf32.cu`` (mma.sync, every other call):
   flash_attention.py — causal / sliding-window / bidirectional attention
-                       forward with an online softmax (the transformer prefill)
+                       forward with an online softmax (every family's prefill)
 
 Each pairs with a plain PyTorch version in ``ref.py``, which runs for CPU
 tensors; ``ops.py`` is the typed public API of the storage ops (the four plane

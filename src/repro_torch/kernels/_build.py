@@ -13,9 +13,10 @@ PyTorch versions.
 Launch counts live here too: each wrapper calls :func:`launch` (the storage
 kernels' ``(*tensors, n, nb)`` convention) or :func:`launch_args` (any other
 launcher, such as flash attention's), which count one launch per kernel call
-that actually reached the card. A launcher that is another route of a kernel
-(``zllm_flash_attention_sm90``, ``zllm_flash_attention_tf32``) counts under
-that kernel's name.
+that actually reached the card. The two routes of flash attention
+(``zllm_flash_attention_sm90``, ``zllm_flash_attention_tf32``) share one C
+signature and count under ``"flash_attention"``, which names no launcher of
+its own.
 
 ``nvcc`` runs with ``-Xptxas -v``; :func:`build_log` keeps what each source's
 compile printed (registers, shared memory and spills of every kernel).
@@ -40,8 +41,8 @@ __all__ = ["BUILD_DIR", "KERNELS", "SOURCES", "NVCC_FLAGS", "library", "library_
            "launch_args", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "planes.cu", _PKG / "csrc" / "flash_attention.cu",
-           _PKG / "csrc" / "flash_attention_sm90.cu", _PKG / "csrc" / "flash_attention_tf32.cu")
+SOURCES = (_PKG / "csrc" / "planes.cu", _PKG / "csrc" / "flash_attention_sm90.cu",
+           _PKG / "csrc" / "flash_attention_tf32.cu")
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,12 +58,13 @@ _SIGNATURES = {
     "merge": (_P, _P, _N, _NB, _P),
     "xor": (_P, _P, _P, _N, _NB, _P),
     "hamming": (_P, _P, _P, _N, _NB, _P),  # out: grid(n) 64-bit partials
-    # csrc/flash_attention.cu: q, k, v, o; B, Sq, Sk, H, D; the B/S/H element
+    # flash attention's routes: q, k, v, o; B, Sq, Sk, H, D; the B/S/H element
     # strides of q, k, v and o; causal, window, dtype code; the stream
     "flash_attention": (_P,) * 4 + (_N,) * 5 + (_N,) * 12 + (_NB,) * 3 + (_P,),
 }
-# launchers that are another route of a kernel above: same signature, counted
-# under that kernel's name (csrc/flash_attention_sm90.cu, flash_attention_tf32.cu)
+# launchers that are a route of a kernel above: its signature, counted under
+# its name (csrc/flash_attention_sm90.cu, flash_attention_tf32.cu); a kernel
+# they count under has no launcher of its own
 _COUNTED_AS = {"flash_attention_sm90": "flash_attention", "flash_attention_tf32": "flash_attention"}
 
 _lock = threading.Lock()
@@ -137,8 +139,8 @@ def library() -> ctypes.CDLL:
             if not path.exists():
                 _compile(path)
             lib = ctypes.CDLL(str(path))
-            launchers = {**_SIGNATURES,
-                         **{k: _SIGNATURES[kernel] for k, kernel in _COUNTED_AS.items()}}
+            launchers = {k: sig for k, sig in _SIGNATURES.items() if k not in _COUNTED_AS.values()}
+            launchers.update((k, _SIGNATURES[kernel]) for k, kernel in _COUNTED_AS.items())
             for kernel, argtypes in launchers.items():
                 fn = getattr(lib, f"zllm_{kernel}")
                 fn.argtypes = list(argtypes)

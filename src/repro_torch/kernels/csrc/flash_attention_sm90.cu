@@ -3,34 +3,58 @@
 // transformer families; D 80: zamba2-2.7b's shared attention; D 64: whisper).
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (the Pallas
 // TPU kernel _flash_kernel and its pallas_call) for those calls; every other
-// call (float32, head dims 16/32/256, operands TMA cannot address) keeps the
-// SIMT kernel of flash_attention.cu. kernels/flash_attention.py::route picks.
+// call (float32, head dims 16/32/256, operands TMA cannot address) takes the
+// TF32 kernel of flash_attention_tf32.cu. kernels/flash_attention.py::route
+// picks.
 //
-// What it computes is the SIMT kernel's function, in the same order of
-// arithmetic where it matters: scores q.k accumulated in float32 from the bf16
-// operands; the scale applied to the float32 scores after the product (folded
-// with log2(e), so the softmax runs on exp2; in a tile with no masked key the
-// scale is folded into the exponent's FFMA); then the mask, in those scaled
-// units: the finite -1e30 for keys the causal mask or the sliding window
-// (k_pos > q_pos - window) removes, so a row whose keys are all masked averages
-// v uniformly, and -inf for keys past Sk; online softmax with a running max,
-// a running sum of the unrounded p and a rescale of the accumulator; p rounded
-// to bf16 before the PV product, as the reference rounds p to v's type; the
-// output acc / max(l, 1e-30) in bf16. KV tiles wholly above the diagonal are
-// skipped and the heaviest q tiles start first; tiles below a sliding window
-// are not skipped (a bidirectional windowed row with Sq > Sk can be fully
-// masked). Rows past Sq are not stored.
+// What it computes, in this order of arithmetic: scores q.k accumulated in
+// float32 from the bf16 operands; the scale applied to the float32 scores
+// after the product (folded with log2(e), so the softmax runs on exp2; in a
+// tile with no masked key the scale is folded into the exponent's FFMA); then
+// the mask, in those scaled units: the finite -1e30 for keys the causal mask
+// or the sliding window (k_pos > q_pos - window) removes, so a row whose keys
+// are all masked averages v uniformly, and -inf for keys past Sk; online
+// softmax with a running max, a running sum of the unrounded p and a rescale
+// of the accumulator; p rounded to bf16 before the PV product, as the
+// reference rounds p to v's type; the output acc / max(l, 1e-30) in bf16. KV
+// tiles wholly above a q block's diagonal are skipped and the heaviest q
+// blocks start first; tiles below a sliding window are not skipped (a
+// bidirectional windowed row with Sq > Sk can be fully masked). Rows past Sq
+// are not stored.
 //
 // What bounds it: at the serving path's larger prefill (B 4, S 2032, H 28,
 // D 128, causal) the two products over the unmasked (q, k) pairs are 120 GFLOP
 // against 0.23 GB of q, k, v and o, so the bound is the bf16 tensor cores:
 // 0.12 ms at 989 TFLOP/s (the bytes take 0.07 ms at 3.35 TB/s). At zamba2's
 // prefill (B 4, S 1024, H 32, D 80, causal) it is 21 GFLOP against 0.084 GB,
-// so the bytes bound it: 0.025 ms (the tensor cores need 0.022 ms). A D-80
-// tile costs the softmax, which sets the pace, as much as a D-128 tile.
+// so the bytes bound it: 0.025 ms (the tensor cores need 0.022 ms). Inside
+// the SM the softmax competes with the products: a 64 x 64 tile's 4096 exp2
+// take 256 cycles of the SM's 16 a cycle, against 512 cycles of wgmma at D 128
+// (320 at D 80, 256 at D 64), so the exp2 has to run under the products.
 //
-// What the design does about it (FA3-shaped, one block per 128 query rows of
-// one (batch, head); grid (q tiles, H, B), q tiles reversed when causal):
+// What the design does about it (one block per 128 query rows of one (batch,
+// head); grid (q blocks, H, B), q blocks reversed when causal):
+// - Warpgroups 0 and 1 consume, 64 query rows apiece; warpgroup 2 produces
+//   (one thread issues every TMA load). 384 threads, one block an SM, so
+//   ptxas gives a thread 168 registers: 12 warps over the SM's 4 register
+//   files. The two consumers share every K and V tile, so L2 sends each tile
+//   once per 128 query rows.
+// - The consumers take turns at the tensor cores through two named barriers
+//   (FA3's ping-pong): one turn per KV tile issues S_{n+1} = Q.K_{n+1}^T and
+//   O += P_n.V_n back to back; the softmax of S_{n+1} then runs while P_n.V_n
+//   and the other warpgroup's turn are on the tensor cores. wgmma.wait_group
+//   1 lets S_{n+1} finish with P_n.V_n in flight, wait_group 0 retires P_n.V_n
+//   before P is repacked; O is rescaled before the next turn, when no product
+//   holds it. Live at once: O (D / 2), S (a tile's half), P (a quarter).
+// - KV tiles are 64 keys at D 80 and 128 and 128 keys at D 64: the widest
+//   that keeps O, S and P with S's product in flight inside 168 registers
+//   (at D 128 a 128-key tile needs 64 + 64 + 32 and spills).
+// - K and V travel in units: unit u holds V_{u-1} and K_u (unit 0 K_0 alone,
+//   the last V alone), the two tiles one turn reads, under one "full" and one
+//   "empty" mbarrier, in a ring of 6: one barrier wait and one release a turn.
+// - The causal skip works per 64-row warpgroup where tiles are 64 keys: the
+//   upper warpgroup computes no tile past its own diagonal and passes the turn
+//   of the lower one's diagonal tile without products.
 // - q, k and v stay bf16 in shared memory, loaded by TMA through 4-D tensor
 //   maps over (D, S, H, B) with the operands' own byte strides (a strided slice
 //   of a fused projection needs no copy), 128-byte swizzled. A box holds 64
@@ -42,44 +66,39 @@
 //   panel 1) and P.V is one m64n80k16 per 16 keys whose B spans both panels.
 //   TMA zero-fills rows past Sq and Sk; those keys still score -inf by
 //   position.
-// - K and V go through a ring of kStages stages with a "full" and an "empty"
-//   mbarrier each for K and for V: the consumers start Q.K^T while V is in
-//   flight, and free a stage's K as soon as Q.K^T has read it.
-// - Warp specialisation: warpgroup 0 is the producer (one thread issues every
-//   TMA load), warpgroups 1 and 2 are consumers, 64 query rows apiece. Each
-//   consumer runs Q.K^T, softmax, P.V in turn; the two groups overlap each
-//   other. ptxas allocates every thread of this 384-thread block within 168
-//   registers, and setmaxnreg (a producer giving its registers to the
-//   consumers at run time) did not change that allocation, so the kernel does
-//   without it. FA3's overlap of a tile's Q.K^T with the previous tile's P.V
-//   inside one group (S, O and P in flight at once) needs about 240 registers
-//   a thread and, under 168, spills and serialises its wgmmas; the serial
-//   order keeps every live register under 168.
-// - S = Q.K^T is wgmma.m64n128k16 with A (Q) and B (K) both K-major in shared
-//   memory; O += P.V is wgmma.m64nDk16 with P taken from registers as the A
-//   operand (the S accumulator's layout is the A fragment's, so P needs no
-//   shuffle) and V as the B operand in its natural (keys, D) layout, read
-//   MN-major through the transpose bit wgmma has for 16-bit B.
+// - S = Q.K^T is wgmma.m64nNk16 (N the tile's keys) with A (Q) and B (K) both
+//   K-major in shared memory; O += P.V is wgmma.m64nDk16 with P taken from
+//   registers as the A operand (the S accumulator's layout is the A
+//   fragment's, so P needs no shuffle) and V as the B operand in its natural
+//   (keys, D) layout, read MN-major through the transpose bit wgmma has for
+//   16-bit B. The descriptors derive from a warp-uniform warpgroup index, so
+//   each step of a product adds an immediate to a uniform register.
 // - The online softmax runs on the accumulator fragments in registers: each
 //   thread holds two rows; a row's max and sum reduce over the 4 threads that
-//   share it. It, not the tensor cores, sets the pace, so it is lean: the
-//   scale folded into the exponent's FFMA where no key is masked, the mask
-//   tests only on tiles that can hold a masked key, and no rescale of O when
-//   no row of a warp changed its max.
+//   share it, in 4 independent chains a thread. The scale is folded into the
+//   exponent's FFMA where no key is masked, and the mask tests run only on
+//   tiles that can hold a masked key.
 // - A mbarrier wait that lasts 4 s traps, so a fault in the pipeline fails the
 //   launch instead of hanging the card.
 //
-// What it leaves for later: a persistent grid with a tile scheduler (one
-// tile's prologue and epilogue under another's compute), overlapping one
-// warpgroup's softmax with its own next wgmma (it needs more than 168
-// registers a thread), a TMA store of O, fp8, and native grouped-query
-// indexing (the TPU kernel takes expanded heads, and so does this interface).
-// At D 80 the zero-filled columns 80-127 take 37.5% of each tile's shared
-// memory; a 16-column tail panel with a 32-byte swizzle would save them at the
-// cost of splitting each P.V into n64 + n16 products.
+// Forms measured and not kept (each checked right against the plain version,
+// timed on an H100 beside the PR 14/18 kernel; PERF.md has the account): 64-row
+// blocks, two an SM, with a producer warp (160 threads) get 168 registers too
+// (10 warps over 4 register files), and at D 128 ptxas spilled and serialised
+// the wgmma; without the producer warp, the loads a consumer thread issues
+// (expect_tx, TMA, the stage tests) stall its warpgroup every tile, and every
+// 64-row block reads K and V from L2 again; setmaxnreg (producer 24-40,
+// consumers 232-240 registers) left ptxas's allocation at 168.
 //
-// The launcher is a plain C function with zllm_flash_attention's signature;
-// the tensor maps are encoded on the host at each call with
+// What it leaves for later: D 128 at 128-key tiles, which needs more than
+// 168 registers a thread (its softmax of a 64-key tile outlasts the other
+// warpgroup's products, so the tensor cores idle part of each turn); a
+// persistent grid with a tile scheduler; a TMA store of O; fp8; native
+// grouped-query indexing (the TPU kernel takes expanded heads, and so does
+// this interface).
+//
+// The launcher is a plain C function with the flash_attention signature of
+// kernels/_build.py; the tensor maps are encoded on the host at each call with
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so the
 // library needs no -lcuda.
 
@@ -92,10 +111,9 @@
 namespace {
 
 constexpr int kBQ = 128;          // query rows per block: two consumer warpgroups of 64
-constexpr int kBKV = 128;         // keys per K/V stage
-constexpr int kStages = 3;        // K/V ring depth
-constexpr int kThreads = 384;     // producer warpgroup + two consumer warpgroups
-constexpr int kConsumers = 256;   // consumer threads: arrivals that free a stage
+constexpr int kConsumers = 256;   // consumer warpgroups 0 and 1; warpgroup 2 loads
+constexpr int kThreads = 384;
+constexpr int kWarps = 8;         // arrivals that free a stage: one per consumer warp
 constexpr int kPanelCols = 64;    // bf16 columns in one 128-byte swizzled row (one TMA box)
 constexpr float kNegInf = -1e30f; // the reference's finite mask value
 
@@ -103,18 +121,24 @@ constexpr float kNegInf = -1e30f; // the reference's finite mask value
 // 128-byte swizzle repeats every 8 rows of 128 bytes). A tile of R rows and D
 // columns is ceil(D / 64) panels of R x 128 bytes: whole TMA boxes, the
 // zero-filled columns past D included, which is also what TMA counts on the
-// barrier.
+// barrier. K and V travel in units: unit u holds V_{u-1} and K_u (unit 0 K_0
+// alone, the last V alone), the two tiles step n of the loop reads, under
+// one barrier.
 template <int D>
 struct Layout {
   static constexpr int kPanels = (D + kPanelCols - 1) / kPanelCols;
+  // keys per K/V tile: 128 where O, S and P of a tile fit a thread's registers
+  // beside the product in flight (D 64: 32 + 64 + 32), else 64
+  static constexpr int kBKV = D == 64 ? 128 : 64;
+  static constexpr int kS = kBKV / 2;  // S accumulator floats a thread holds for one tile
+  static constexpr int kUnits = 6;     // ring depth: 224 KB at D 80 and 128
   static constexpr int kQBytes = kPanels * kBQ * kPanelCols * 2;
-  static constexpr int kKVBytes = kPanels * kBKV * kPanelCols * 2;
+  static constexpr int kTileBytes = kPanels * kBKV * kPanelCols * 2;  // one K or V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kQBytes;
-  static constexpr int kV = kK + kStages * kKVBytes;
-  // mbarriers: q_full, k_full[], v_full[], k_empty[], v_empty[]
-  static constexpr int kBar = kV + kStages * kKVBytes;
-  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
+  static constexpr int kU = kQ + kQBytes;                  // unit s: V at kU + 2 s tiles, K after it
+  // mbarriers: q_full, full[], empty[]
+  static constexpr int kBar = kU + kUnits * 2 * kTileBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kUnits);
   static constexpr int kAlloc = kBytes + 1024;  // slack to align the dynamic base
 };
 
@@ -207,9 +231,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// D (64 x 64, f32) (+)= A (64 x 16, shared memory, K-major) * B (16 x 64, shared memory, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 128, f32) (+)= A (64 x 16, shared memory, K-major) * B (16 x 128, shared memory, K-major)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                             int accumulate) {
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -225,6 +263,16 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// S (64 x N) (+)= Q (64 x 16) K^T (16 x N), both from shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss_s(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, desc_a, desc_b, accumulate);
+  } else {
+    wgmma_ss_n64(d, desc_a, desc_b, accumulate);
+  }
 }
 
 // D (64 x 128, f32) += A (64 x 16 bf16, registers) * B (16 x 128, shared memory, MN-major)
@@ -295,32 +343,33 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[
 
 constexpr uint32_t kRowBytes = kPanelCols * 2;  // 128: one swizzled row of a panel
 
-// Issue S = Q K^T for one warpgroup's 64 query rows and one KV tile, as one
-// wgmma group: D / 16 steps of 16 columns; a step within a panel moves the
-// descriptors 32 bytes along the swizzled row, the next panel starts anew (at
-// D 80 the fifth step reads columns 64-79, never the zero-filled rest).
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&acc_s)[kBKV / 2], uint32_t q_rows, uint32_t k_tile) {
+// The descriptor of the same layout at addr + bytes (bytes a multiple of 16;
+// the address field, in 16-byte units, does not overflow below 256 KB)
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) { return desc + (bytes >> 4); }
+
+// Issue S = Q K^T for a warpgroup's 64 query rows (dq: the descriptor of its
+// first row in Q's tile) and one KV tile (dk), as one wgmma group: D / 16
+// steps of 16 columns; a step within a panel moves the descriptors 32 bytes
+// along the swizzled row, the next panel starts anew (at D 80 the fifth step
+// reads columns 64-79, never the zero-filled rest).
+template <int D, int N = Layout<D>::kBKV>
+__device__ __forceinline__ void issue_qk(float (&acc_s)[N / 2], uint64_t dq, uint64_t dk) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t col_bytes = (kk % 4) * 32;
-    wgmma_ss_n128(acc_s, sw128_desc(q_rows + (kk / 4) * kBQ * kRowBytes + col_bytes, 16, 8 * kRowBytes),
-                  sw128_desc(k_tile + (kk / 4) * kBKV * kRowBytes + col_bytes, 16, 8 * kRowBytes), kk > 0);
-  }
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_s<N>(acc_s, desc_at(dq, (kk / 4) * kBQ * kRowBytes + (kk % 4) * 32),
+                  desc_at(dk, (kk / 4) * N * kRowBytes + (kk % 4) * 32), kk > 0);
   wgmma_commit();
 }
 
-// Issue O += P V as one wgmma group: kBKV / 16 steps of 16 keys, each 16 rows
-// of 128 bytes on; a D-128 or D-80 row of V spans two panels, kBKV rows apart
-// (the descriptor's leading byte offset), D 80 reading 16 columns of the second.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2], const uint32_t (&pa)[kBKV / 16][4],
-                                         uint32_t v_tile) {
+// Issue O += P V as one wgmma group (dv: V's tile of N keys, MN-major with
+// its panels N rows apart): N / 16 steps of 16 keys, each 16 rows of 128 bytes
+// on; D 80 reads 16 columns of the second panel.
+template <int D, int N = Layout<D>::kBKV>
+__device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2], const uint32_t (&pa)[N / 16][4], uint64_t dv) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBKV / 16; ++kk)
-    wgmma_pv<D>(acc_o, pa[kk], sw128_desc(v_tile + kk * 16 * kRowBytes, kBKV * kRowBytes, 8 * kRowBytes));
+  for (int kk = 0; kk < N / 16; ++kk) wgmma_pv<D>(acc_o, pa[kk], desc_at(dv, kk * 16 * kRowBytes));
   wgmma_commit();
 }
 
@@ -339,6 +388,34 @@ __device__ __forceinline__ void update_max(float (&mx)[2], float (&m)[2], float 
   }
 }
 
+// A thread's kS / 2 values of each of its two rows are reduced in 4
+// independent chains (element i feeds chain ((i >> 2) & 1) * 2 + (i & 1) of
+// row (i >> 1) & 1), so the reductions wait on a quarter of the latencies one
+// chain would.
+__device__ __forceinline__ int chain(int i) { return ((i >> 2) & 1) * 2 + (i & 1); }
+
+template <int kS>
+__device__ __forceinline__ void row_max(const float (&acc_s)[kS], float (&mx)[2]) {
+  float part[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[r][c] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kS; ++i) part[(i >> 1) & 1][chain(i)] = fmaxf(part[(i >> 1) & 1][chain(i)], acc_s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) mx[r] = fmaxf(fmaxf(part[r][0], part[r][1]), fmaxf(part[r][2], part[r][3]));
+}
+
+template <int kS>
+__device__ __forceinline__ void add_rows(const float (&acc_s)[kS], float (&l)[2]) {
+  float part[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < kS; ++i) part[(i >> 1) & 1][chain(i)] += acc_s[i];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] += (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]);
+}
+
 // The online softmax of one S tile, in place: scale in float32, then mask in
 // the scaled units, then p = 2^(s - m) over the new running max m; l takes
 // p's float32 sum (this thread's columns; the 4 threads of a row add theirs at
@@ -348,28 +425,24 @@ __device__ __forceinline__ void update_max(float (&mx)[2], float (&m)[2], float 
 // A tile with no masked key takes the max of the unscaled scores (scaling by
 // a positive float keeps the max) and folds the scale into the exponent's
 // FFMA: one instruction per score fewer on the path that bounds the kernel.
-__device__ __forceinline__ void softmax_tile(float (&acc_s)[kBKV / 2], float (&m)[2], float (&l)[2],
+template <int kS>
+__device__ __forceinline__ void softmax_tile(float (&acc_s)[kS], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], bool edge, int k0, int row0, int col0,
                                              int Sk, int causal, int window, float scale_log2) {
-  float mx[2] = {-INFINITY, -INFINITY};
+  float mx[2];
   if (!edge) {
-#pragma unroll
-    for (int i = 0; i < kBKV / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], acc_s[i]);
+    row_max(acc_s, mx);
     mx[0] *= scale_log2;
     mx[1] *= scale_log2;
     update_max(mx, m, l, corr);
 #pragma unroll
-    for (int i = 0; i < kBKV / 2; ++i) {
-      const int r = (i >> 1) & 1;
-      acc_s[i] = ex2(fmaf(acc_s[i], scale_log2, -m[r]));
-      l[r] += acc_s[i];
-    }
+    for (int i = 0; i < kS; ++i) acc_s[i] = ex2(fmaf(acc_s[i], scale_log2, -m[(i >> 1) & 1]));
+    add_rows(acc_s, l);
     return;
   }
 #pragma unroll
-  for (int i = 0; i < kBKV / 2; ++i) {
-    const int r = (i >> 1) & 1;
-    const int kp = k0 + 8 * (i >> 2) + col0 + (i & 1), qp = row0 + 8 * r;
+  for (int i = 0; i < kS; ++i) {
+    const int kp = k0 + 8 * (i >> 2) + col0 + (i & 1), qp = row0 + 8 * ((i >> 1) & 1);
     float x = acc_s[i] * scale_log2;
     if (kp >= Sk) {
       x = -INFINITY;  // past the last key: no weight, even in a fully masked row
@@ -377,31 +450,73 @@ __device__ __forceinline__ void softmax_tile(float (&acc_s)[kBKV / 2], float (&m
       x = kNegInf;
     }
     acc_s[i] = x;
-    mx[r] = fmaxf(mx[r], x);
   }
+  row_max(acc_s, mx);
   update_max(mx, m, l, corr);
 #pragma unroll
-  for (int i = 0; i < kBKV / 2; ++i) {
-    const int r = (i >> 1) & 1;
-    acc_s[i] = ex2(acc_s[i] - m[r]);
-    l[r] += acc_s[i];
-  }
+  for (int i = 0; i < kS; ++i) acc_s[i] = ex2(acc_s[i] - m[(i >> 1) & 1]);
+  add_rows(acc_s, l);
 }
 
 // p rounded to bf16, packed straight into the A fragments of the PV product:
 // the S accumulator's layout is the A operand's, 16 keys per fragment.
-__device__ __forceinline__ void pack_p(const float (&acc_s)[kBKV / 2], uint32_t (&pa)[kBKV / 16][4]) {
+template <int kS>
+__device__ __forceinline__ void pack_p(const float (&acc_s)[kS], uint32_t (&pa)[kS / 8][4]) {
 #pragma unroll
-  for (int i = 0; i < kBKV / 2; i += 2) pa[i / 8][(i / 2) % 4] = pack_bf16(acc_s[i], acc_s[i + 1]);
+  for (int i = 0; i < kS; i += 2) pa[i / 8][(i / 2) % 4] = pack_bf16(acc_s[i], acc_s[i + 1]);
 }
 
-// O *= corr per row; skipped when no row of the warp changed its max (the
-// common case once a row has seen its largest scores)
+// O *= corr per row (a vote that skipped it when no row of a warp changed its
+// max cost more than the multiplies)
 template <int D>
 __device__ __forceinline__ void rescale(float (&acc_o)[D / 2], const float (&corr)[2]) {
-  if (__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) return;
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc_o[i] *= corr[(i >> 1) & 1];
+}
+
+// The ring of units: unit u lives in stage u % kUnits, V_{u-1} first, K_u
+// after it.
+template <int D>
+struct Units {
+  using L = Layout<D>;
+  uint32_t tiles, full, empty;
+
+  __device__ __forceinline__ uint32_t v_tile(int u) const { return tiles + (u % L::kUnits) * 2 * L::kTileBytes; }
+  __device__ __forceinline__ uint32_t k_tile(int u) const { return v_tile(u) + L::kTileBytes; }
+  __device__ __forceinline__ void wait(int u) const { mbar_wait(full + 8 * (u % L::kUnits), (u / L::kUnits) & 1); }
+  // a warp's wgmma reads of unit u are done once its wait_group returned
+  __device__ __forceinline__ void release(int u) const {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8 * (u % L::kUnits));
+  }
+  // the producer: unit u (of n_load + 1) into its stage once all eight
+  // consumer warps released the unit that stage held before (the first pass
+  // finds every stage free)
+  __device__ __forceinline__ void load(const CUtensorMap* tm_k, const CUtensorMap* tm_v, int u, int n_load,
+                                       int h, int b) const {
+    const int s = u % L::kUnits;
+    mbar_wait(empty + 8 * s, ((u / L::kUnits) & 1) ^ 1);
+    mbar_expect_tx(full + 8 * s, ((u > 0) + (u < n_load)) * L::kTileBytes);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) {
+      if (u > 0)
+        tma_load(v_tile(u) + p * L::kBKV * kRowBytes, tm_v, full + 8 * s, p * kPanelCols, (u - 1) * L::kBKV, h,
+                 b);
+      if (u < n_load)
+        tma_load(k_tile(u) + p * L::kBKV * kRowBytes, tm_k, full + 8 * s, p * kPanelCols, u * L::kBKV, h, b);
+    }
+  }
+};
+
+// The two consumer warpgroups take turns at the tensor cores (named barriers
+// 1 and 2, 256 threads each): a warpgroup waits at its own barrier, issues
+// its products, and arrives at the other's, so one warpgroup's softmax runs
+// while the other's products do. Warpgroup 1 arrives once first, so
+// warpgroup 0 has the first turn.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(2 - wg), "n"(kConsumers) : "memory");
 }
 
 template <int D>
@@ -410,119 +525,139 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int Sq,
                       int Sk, Strides so, int causal, int window, float scale_log2) {
   using L = Layout<D>;
-  constexpr int kPanels = L::kPanels;
+  constexpr int kBKV = L::kBKV, kS = L::kS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
-  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t sQ = base + L::kQ;
   const uint32_t bar_q = base + L::kBar;
-  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * kStages;
-  const uint32_t bar_k_empty = bar_v + 8 * kStages, bar_v_empty = bar_k_empty + 8 * kStages;
+  const Units<D> units{base + L::kU, bar_q + 8, bar_q + 8 + 8 * L::kUnits};
 
-  // q tiles of one (batch, head) are neighbours in launch order, so they run
+  // q blocks of one (batch, head) are neighbours in launch order, so they run
   // together and share that head's K and V in L2; causal: within a head, the
-  // q tiles with the most KV tiles start first
+  // q blocks with the most KV tiles start first
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * kBQ;
-  const int q_end = min(q0 + kBQ, Sq);              // one past the tile's last row
-  const int kv_end = causal ? min(Sk, q_end) : Sk;  // later tiles lie above the diagonal
-  const int n_tiles = (kv_end + kBKV - 1) / kBKV;
+  // the block loads the tiles up to its last row's diagonal
+  const int n_load = ((causal ? min(Sk, min(q0 + kBQ, Sq)) : Sk) + kBKV - 1) / kBKV;  // >= 1: Sk >= 1
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(bar_k + 8 * s, 1);
-      mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_k_empty + 8 * s, kConsumers);
-      mbar_init(bar_v_empty + 8 * s, kConsumers);
+    for (int s = 0; s < L::kUnits; ++s) {
+      mbar_init(units.full + 8 * s, 1);
+      mbar_init(units.empty + 8 * s, kWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
-    // producer warpgroup: one thread issues every load, K and V of a tile
-    // each into its stage as soon as the consumers have released it
-    if (threadIdx.x == 0) {
+  if (threadIdx.x >= kConsumers) {
+    // producer warpgroup: one thread issues every load, Q and then the units
+    // in order, each into its stage as soon as the consumers have released it
+    if (threadIdx.x == kConsumers) {
       mbar_expect_tx(bar_q, L::kQBytes);
 #pragma unroll
-      for (int p = 0; p < kPanels; ++p)
+      for (int p = 0; p < L::kPanels; ++p)
         tma_load(sQ + p * kBQ * kRowBytes, &tm_q, bar_q, p * kPanelCols, q0, h, b);
-      for (int n = 0; n < n_tiles; ++n) {
-        const int s = n % kStages;
-        const uint32_t free_parity = ((n / kStages) & 1) ^ 1;  // the first pass finds it free
-        const uint32_t k_dst = sK + s * L::kKVBytes, v_dst = sV + s * L::kKVBytes;
-        mbar_wait(bar_k_empty + 8 * s, free_parity);
-        mbar_expect_tx(bar_k + 8 * s, L::kKVBytes);
-#pragma unroll
-        for (int p = 0; p < kPanels; ++p)
-          tma_load(k_dst + p * kBKV * kRowBytes, &tm_k, bar_k + 8 * s, p * kPanelCols, n * kBKV, h, b);
-        mbar_wait(bar_v_empty + 8 * s, free_parity);
-        mbar_expect_tx(bar_v + 8 * s, L::kKVBytes);
-#pragma unroll
-        for (int p = 0; p < kPanels; ++p)
-          tma_load(v_dst + p * kBKV * kRowBytes, &tm_v, bar_v + 8 * s, p * kPanelCols, n * kBKV, h, b);
-      }
+      for (int u = 0; u <= n_load; ++u) units.load(&tm_k, &tm_v, u, n_load, h, b);
     }
-  } else {
-    // consumer warpgroups 1 and 2: 64 query rows each; per KV tile S = Q K^T,
-    // the online softmax, then O += P V
-    const int c = threadIdx.x / 128 - 1;
-    const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
-    const int wg_row = q0 + 64 * c;                     // the group's first query row
-    const int row0 = wg_row + 16 * warp + (lane >> 2);  // this thread's rows: row0 and row0 + 8
-    const int col0 = 2 * (lane & 3);                    // and columns col0, col0 + 1 of every 8
-    const uint32_t q_rows = sQ + 64 * c * kRowBytes;
-    // whether any key of tile n can be masked for this group's rows
-    auto edge = [&](int k0) {
-      return k0 + kBKV > Sk || window > 0 || (causal && k0 + kBKV - 1 > wg_row);
-    };
+    return;
+  }
 
-    float acc_o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
-    float acc_s[kBKV / 2];
-    uint32_t pa[kBKV / 16][4];
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  // consumer warpgroup wg: 64 query rows. It walks the tiles up to its own
+  // diagonal (the upper one has one tile fewer where the lower one's diagonal
+  // has a tile of its own, and passes that turn without products), or all of
+  // them if it has no row below Sq (rows past Sq are not stored).
+  // the warpgroup index through a shuffle from lane 0, so that the compiler
+  // knows it uniform and builds the wgmma descriptors in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int wg_q0 = q0 + 64 * wg;
+  const int n_tiles = causal && wg_q0 < Sq ? (min(Sk, min(wg_q0 + 64, Sq)) + kBKV - 1) / kBKV : n_load;
+  const int row0 = wg_q0 + 16 * warp + (lane >> 2);  // this thread's rows: row0 and row0 + 8
+  const int col0 = 2 * (lane & 3);                   // and columns col0, col0 + 1 of every 8
+  const uint64_t dq = sw128_desc(sQ + 64 * wg * kRowBytes, 16, 8 * kRowBytes);  // K-major
+  auto dk = [&](int u) { return sw128_desc(units.k_tile(u), 16, 8 * kRowBytes); };      // K-major
+  auto dv = [&](int u) { return sw128_desc(units.v_tile(u), kBKV * kRowBytes, 8 * kRowBytes); };  // MN-major
+  // whether any key of the tile at k0 can be masked for the warpgroup's rows
+  auto edge = [&](int k0) {
+    return k0 + kBKV > Sk || window > 0 || (causal && k0 + kBKV - 1 > wg_q0);
+  };
 
-    mbar_wait(bar_q, 0);
-    for (int n = 0; n < n_tiles; ++n) {
-      const int s = n % kStages;
-      const uint32_t parity = (n / kStages) & 1;
-      mbar_wait(bar_k + 8 * s, parity);
-      issue_qk<D>(acc_s, q_rows, sK + s * L::kKVBytes);
-      wgmma_wait<0>();
-      fence_regs(acc_s);
-      mbar_arrive(bar_k_empty + 8 * s);  // K of this stage is consumed
-      softmax_tile(acc_s, m, l, corr, edge(n * kBKV), n * kBKV, row0, col0, Sk, causal, window,
-                   scale_log2);
-      pack_p(acc_s, pa);
-      rescale<D>(acc_o, corr);
-      mbar_wait(bar_v + 8 * s, parity);
-      issue_pv<D>(acc_o, pa, sV + s * L::kKVBytes);
-      wgmma_wait<0>();
-      fence_regs(acc_o);
-      mbar_arrive(bar_v_empty + 8 * s);  // and V
-    }
+  float acc_o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
+  float acc_s[kS], corr[2];
+  uint32_t pa[kBKV / 16][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // S_0 in the first turn, then its softmax
+  if (wg == 1) turn_pass(wg);
+  mbar_wait(bar_q, 0);
+  units.wait(0);
+  turn_wait(wg);
+  issue_qk<D>(acc_s, dq, dk(0));
+  turn_pass(wg);
+  wgmma_wait<0>();
+  fence_regs(acc_s);
+  units.release(0);
+  softmax_tile(acc_s, m, l, corr, edge(0), 0, row0, col0, Sk, causal, window, scale_log2);
+  pack_p(acc_s, pa);
+
+  // Per tile n, with unit n + 1 (V_n and K_{n+1}) arrived, one turn issues
+  // S_{n+1} = Q K_{n+1}^T and O += P_n V_n; the softmax of S_{n+1} then runs
+  // while P_n V_n and the other warpgroup's turn are on the tensor cores. O is
+  // rescaled before the turn, when no product holds it; P is repacked once
+  // P_n V_n is done. The last tile's turn has P V alone.
+  for (int n = 0; n + 1 < n_tiles; ++n) {
+    units.wait(n + 1);
+    rescale<D>(acc_o, corr);
+    turn_wait(wg);
+    issue_qk<D>(acc_s, dq, dk(n + 1));
+    issue_pv<D>(acc_o, pa, dv(n + 1));
+    turn_pass(wg);
+    wgmma_wait<1>();  // S_{n+1} done, P_n V_n in flight
+    fence_regs(acc_s);
+    softmax_tile(acc_s, m, l, corr, edge((n + 1) * kBKV), (n + 1) * kBKV, row0, col0, Sk, causal, window,
+                 scale_log2);
+    wgmma_wait<0>();
+    fence_regs(acc_o);
+    units.release(n + 1);
+    pack_p(acc_s, pa);
+  }
+  units.wait(n_tiles);
+  rescale<D>(acc_o, corr);
+  turn_wait(wg);
+  issue_pv<D>(acc_o, pa, dv(n_tiles));
+  turn_pass(wg);
+  wgmma_wait<0>();
+  fence_regs(acc_o);
+  // the turns both warpgroups take are 1 + n_load: the upper one passes the
+  // turn of the tile it does not need, and warpgroup 0 takes up the arrival
+  // warpgroup 1 made last
+  for (int n = n_tiles; n < n_load; ++n) {
+    turn_wait(wg);
+    turn_pass(wg);
+  }
+  if (wg == 0) turn_wait(wg);
 
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
-    __nv_bfloat16* ob = o + b * so.b + h * so.h;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __nv_bfloat16* ob = o + b * so.b + h * so.h;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qp = row0 + 8 * r;
-      if (qp < Sq) {
-        const float denom = fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* orow = ob + qp * so.s + col0;
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp < Sq) {
+      const float denom = fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = ob + qp * so.s + col0;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-              pack_bf16(acc_o[4 * j + 2 * r] / denom, acc_o[4 * j + 2 * r + 1] / denom);
-      }
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(orow + 8 * jj) =
+            pack_bf16(acc_o[4 * jj + 2 * r] / denom, acc_o[4 * jj + 2 * r + 1] / denom);
     }
   }
 }
@@ -581,8 +716,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t
   if (B > 65535 || H > 65535 || Sq > 0x7fffffff || Sk > 0x7fffffff) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map(&tq, q, B, Sq, H, D, sq, kBQ);
-  if (err == cudaSuccess) err = make_map(&tk, k, B, Sk, H, D, sk, kBKV);
-  if (err == cudaSuccess) err = make_map(&tv, v, B, Sk, H, D, sv, kBKV);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, Sk, H, D, sk, Layout<D>::kBKV);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, Sk, H, D, sv, Layout<D>::kBKV);
   if (err != cudaSuccess) return err;
   auto kern = flash_fwd_sm90_kernel<D>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -599,8 +734,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t
 
 extern "C" {
 
-// zllm_flash_attention's signature. Takes bf16 (dtype 1) with D 64, 80 or 128;
-// the Python rule (kernels/flash_attention.py::route) also requires 16-byte
+// The flash_attention signature of kernels/_build.py. Takes bf16 (dtype 1)
+// with D 64, 80 or 128; the Python rule (kernels/flash_attention.py::route) also requires 16-byte
 // aligned base pointers and B/S/H strides. Anything else is refused with
 // cudaErrorInvalidValue.
 int zllm_flash_attention_sm90(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,

@@ -18,11 +18,6 @@ TPU kernel is, so an input that requires grad is refused. A tensor on the CPU
 takes the plain version :func:`repro_torch.kernels.ref.mha_reference`; a CUDA
 tensor launches its route's kernel on the current stream or raises (no route
 falls back to another).
-
-The first port's float32-FMA kernel (``csrc/flash_attention.cu``, route
-``"simt"``) is no longer picked by :func:`route`; it stays built and
-launchable through ``_launch("simt", ...)`` so that it can be compared with
-the ``tf32`` kernel on one card.
 """
 
 from __future__ import annotations
@@ -40,8 +35,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535  # heads and batch ride the grid's y and z dims
 _TMA_ALIGN = 16         # bytes: a tensor map's base address and strides are multiples of it
 _TMA_STRIDE_LIMIT = 1 << 40  # bytes: and its strides are below it
-_LAUNCHER = {"sm90": "flash_attention_sm90", "tf32": "flash_attention_tf32",
-             "simt": "flash_attention"}
+_LAUNCHER = {"sm90": "flash_attention_sm90", "tf32": "flash_attention_tf32"}
 
 # launches per route; _build counts them all under "flash_attention"
 ROUTE_LAUNCHES = {name: 0 for name in _LAUNCHER}

@@ -15,8 +15,9 @@ Signatures match the wrappers in :mod:`repro_torch.kernels.bitx_xor`,
 words in as flat uint8 buffers of ``n * nb`` bytes, planes as one ``(nb, n)``
 uint8 tensor.
 
-``mha_reference`` is the plain version of the flash-attention kernel in
-``csrc/flash_attention.cu``: dense masked softmax attention.
+``mha_reference`` is the plain version of the flash-attention kernels in
+``csrc/flash_attention_sm90.cu`` and ``csrc/flash_attention_tf32.cu``: dense
+masked softmax attention.
 """
 
 from __future__ import annotations

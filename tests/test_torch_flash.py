@@ -146,11 +146,10 @@ def test_flash_plain_path_matches_jax_at_reference_head_dims(D, dtype):
         _close(got, jax_mha_reference(jq, jk, jv, causal=causal), DTYPES[dtype][2])
 
 
-def test_head_dim_80_takes_the_simt_route():
-    """zamba2-2.7b's head dim 80 takes the tf32 kernel (the route that took
-    over every call of the SIMT kernel) where the sm90 kernel does not: in
-    float32, and for a bf16 operand no tensor map can address (a base pointer
-    2 bytes off a 16-byte boundary)."""
+def test_head_dim_80_takes_the_tf32_route():
+    """zamba2-2.7b's head dim 80 takes the tf32 kernel where the sm90 kernel
+    does not: in float32, and for a bf16 operand no tensor map can address (a
+    base pointer 2 bytes off a 16-byte boundary)."""
     assert 80 in HEAD_DIMS
     q = torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16)
     assert route(q.float(), q.float(), q.float()) == "tf32"

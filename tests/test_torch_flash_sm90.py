@@ -4,8 +4,9 @@ of its kernel's arithmetic order (``csrc/flash_attention_sm90.cu``) held to the
 JAX package's ``repro.kernels.ref.mha_reference``.
 
 The kernel itself runs only on the card (``tests/test_torch_gpu.py``). What the
-emulation repeats, step by step in float32: KV tiles of the kernel's width,
-for each 64-row group of a 128-row q tile; bf16 q.k accumulated in float32;
+emulation repeats, step by step in float32: KV tiles of the kernel's width at
+the head dim (128 keys at D 64, 64 at D 80 and 128), for each 64-row
+warpgroup of a 128-row q block; bf16 q.k accumulated in float32;
 the scale with log2(e) folded in, applied to the float32 scores; the mask
 after that scaling (-1e30 for keys the causal mask or the window removes,
 -inf for keys past Sk, which the kernel's TMA loads as zero rows), on tiles
@@ -13,8 +14,8 @@ that can hold a masked key; on the others the max of the unscaled scores
 times the scale and the scale fused into the exponent's argument (one
 rounding, as the kernel's FFMA); the running max, exp2 and a running sum of
 the unrounded p; p rounded to bf16 before the PV product;
-``acc / max(l, 1e-30)`` in bf16; the causal skip of tiles above each 128-row
-q tile's diagonal. Inputs are drawn with numpy from a seed; the tolerance is
+``acc / max(l, 1e-30)`` in bf16; the causal skip of tiles wholly above each
+64-row warpgroup's diagonal. Inputs are drawn with numpy from a seed; the tolerance is
 the reference's bf16 one (``tests/test_flash_kernel.py:33``), 2e-2 as rtol and
 atol.
 """
@@ -27,8 +28,12 @@ import torch
 from repro.kernels.ref import mha_reference as jax_mha_reference
 from repro_torch.kernels import flash_attention as fa
 
-BQ, BKV = 128, 128        # the kernel's q rows per block and keys per K/V stage
-GROUP = 64                # q rows per consumer warpgroup
+GROUP = 64                # q rows per warpgroup (its causal skip's granularity)
+
+
+def tile_keys(D: int) -> int:
+    """The kernel's keys per K/V tile at head dim D (its Layout<D>::kBKV)."""
+    return 128 if D == 64 else 64
 LOG2E = 1.4426950408889634
 TOL = 2e-2
 
@@ -44,18 +49,18 @@ def emulate_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
     for b in range(B):
         for h in range(H):
             qf, kf, vf = (t[b, :, h].float() for t in (q, k, v))
-            for q0 in range(0, Sq, BQ):
-                kv_end = min(Sk, min(q0 + BQ, Sq)) if causal else Sk
-                for g0 in range(q0, min(q0 + BQ, Sq), GROUP):
-                    rows = torch.arange(g0, min(g0 + GROUP, Sq))
-                    out[b, rows, h] = _group(qf[rows], kf, vf, rows, g0, kv_end, causal, window,
-                                             scale_log2)
+            for g0 in range(0, Sq, GROUP):
+                rows = torch.arange(g0, min(g0 + GROUP, Sq))
+                kv_end = min(Sk, min(g0 + GROUP, Sq)) if causal else Sk
+                out[b, rows, h] = _group(qf[rows], kf, vf, rows, g0, kv_end, causal, window,
+                                         scale_log2)
     return out
 
 
 def _group(qg, kf, vf, rows, g0, kv_end, causal, window, scale_log2):
     """One consumer group's rows over the KV tiles up to kv_end."""
     Sk, D = kf.shape
+    BKV = tile_keys(D)
     m = torch.full((len(rows),), -1e30)
     l = torch.zeros(len(rows))
     acc = torch.zeros((len(rows), D))
@@ -116,9 +121,23 @@ CASES = [
     (1, 64, 300, 2, 80, False, 0),
     (1, 200, 200, 2, 80, True, 64),
 ]
+# the edges of the kernel's KV tiles and 64-row warpgroups, at each head dim
+# of the route: Sk one short of, at and one past a 64-key tile (and of two);
+# at D 64 also at and around 128-key tiles; a window one short of, at and one
+# past a tile; one 64-row causal diagonal; a bidirectional window with Sq > Sk
+# whose rows from 47 on have every key masked
+EDGE_CASES = [
+    *[(1, 100, Sk, 2, D, False, 0) for Sk, D in ((63, 64), (64, 80), (65, 128), (127, 64), (129, 80))],
+    *[(1, Sk, Sk, 2, D, True, 0) for Sk, D in ((63, 128), (64, 64), (65, 80), (127, 128), (129, 64))],
+    *[(1, 150, Sk, 2, 64, causal, 0) for Sk, causal in ((128, False), (255, True), (257, False))],
+    *[(1, 200, 200, 2, D, causal, w) for w, D, causal in ((63, 64, True), (64, 80, False),
+                                                          (65, 128, True))],
+    (2, 64, 64, 3, 128, True, 0),
+    (1, 192, 40, 2, 64, False, 8),
+]
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", CASES + EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_emulated_sm90_arithmetic_matches_jax_reference(case):
     B, Sq, Sk, H, D, causal, window = case
     (q, k, v), (jq, jk, jv) = _inputs((B, Sq, H, D), (B, Sk, H, D), 30)
@@ -131,11 +150,12 @@ def test_emulated_sm90_arithmetic_matches_jax_reference(case):
 def test_emulated_fully_masked_rows_average_v_uniformly():
     """-1e30 in the scaled units stays finite: a row whose keys are all
     masked weighs every key 1, and past-Sk zero rows weigh nothing."""
-    (q, k, v), _ = _inputs((1, 128, 2, 64), (1, 16, 2, 64), 31)
-    got = emulate_sm90(q, k, v, causal=False, window=8)
-    mean = v[0].float().mean(dim=0).to(torch.bfloat16)  # (H, D)
-    for row in (23, 64, 127):
-        torch.testing.assert_close(got[0, row].float(), mean.float(), rtol=TOL, atol=TOL)
+    for Sq, Sk, window, rows in ((128, 16, 8, (23, 64, 127)), (192, 40, 8, (47, 64, 191))):
+        (q, k, v), _ = _inputs((1, Sq, 2, 64), (1, Sk, 2, 64), 31)
+        got = emulate_sm90(q, k, v, causal=False, window=window)
+        mean = v[0].float().mean(dim=0).to(torch.bfloat16)  # (H, D)
+        for row in rows:
+            torch.testing.assert_close(got[0, row].float(), mean.float(), rtol=TOL, atol=TOL)
 
 
 def _bf16(shape, seed=0):
@@ -190,4 +210,4 @@ def test_route_is_a_pure_rule_and_counts_nothing_on_the_cpu():
     fa.reset_route_launches()
     assert fa.route(q, k, v) == fa.route(q, k, v) == "sm90"
     fa.flash_attention(q, k, v)  # the plain version: no kernel, no route count
-    assert fa.route_launches() == {"sm90": 0, "tf32": 0, "simt": 0}
+    assert fa.route_launches() == {"sm90": 0, "tf32": 0}

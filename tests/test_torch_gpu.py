@@ -256,10 +256,18 @@ FLASH_CASES = [
     (4, 2032, 2032, 28, 128, True, 0),
     (4, 512, 512, 28, 128, True, 0),
     # head dim 80 (zamba2-2.7b's shared attention; sm90 in bf16, tf32 in
-    # float32, and test_flash_attention_simt_at_head_dim_80 runs the first
-    # port's simt kernel on the bf16 inputs):
-    # ragged, Sq != Sk, a window, and the family phase's prefill
+    # float32): ragged, Sq != Sk, a window, and the family phase's prefill
     *FLASH_CASES_D80,
+    # the edges of the sm90 kernel's 64-key tiles and 64-row warpgroups: Sk
+    # one short of, at and one past a tile (and of two), windows of 63, 64 and
+    # 65, one 64-row causal diagonal, and a bidirectional window with Sq > Sk
+    # whose rows from 47 on have every key masked
+    (1, 100, 63, 2, 64, False, 0), (1, 100, 64, 2, 80, False, 0), (1, 100, 65, 2, 128, False, 0),
+    (1, 127, 127, 2, 128, True, 0), (1, 129, 129, 2, 64, True, 0),
+    (1, 200, 200, 2, 64, True, 63), (1, 200, 200, 2, 80, False, 64), (1, 200, 200, 2, 128, True, 65),
+    (2, 64, 64, 3, 128, True, 0), (1, 192, 40, 2, 64, False, 8),
+    # and of the 128-key tiles of D 64
+    (1, 150, 128, 2, 64, False, 0), (1, 255, 255, 2, 64, True, 0), (1, 150, 257, 2, 64, False, 0),
     # whisper-medium's three attentions at head dim 64: the encoder (1500
     # frames, bidirectional), the decoder's causal self attention, and cross
     # attention from 64 decoder tokens to the 1500 frames
@@ -295,22 +303,6 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     assert got.dtype == dtype and got.shape == (B, Sq, H, D)
     tol = 2e-5 if dtype == torch.float32 else 2e-2  # tests/test_flash_kernel.py:33
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-
-
-@pytest.mark.parametrize("case", FLASH_CASES_D80)
-def test_flash_attention_simt_at_head_dim_80(cuda, case):
-    """The SIMT kernel on bf16 at D 80, which the wrapper sends to sm90 (and
-    picks for nothing since the tf32 route): launched directly, it still
-    matches the plain version."""
-    B, Sq, Sk, H, D, causal, window = case
-    q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), torch.bfloat16, 20, cuda)
-    before = flash_attention.route_launches()
-    got = flash_attention._launch("simt", q, k, v, causal, window)
-    torch.cuda.synchronize()
-    after = flash_attention.route_launches()
-    assert {r: after[r] - before[r] for r in after} == {"sm90": 0, "tf32": 0, "simt": 1}
-    want = ref.mha_reference(q, k, v, causal=causal, window=window)
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
@@ -420,7 +412,7 @@ def test_serve_engine_on_card(cuda):
     assert _build.launch_counts()["flash_attention"] == cfg.n_layers
     # the smoke config's head dim is 16: every call takes the tf32 kernel
     assert cfg.hd == 16
-    assert flash_attention.route_launches() == {"sm90": 0, "tf32": cfg.n_layers, "simt": 0}
+    assert flash_attention.route_launches() == {"sm90": 0, "tf32": cfg.n_layers}
     for rid in ids:
         out = batcher.result(rid)
         assert out.shape == (5,) and ((0 <= out) & (out < cfg.vocab)).all()
