@@ -7,13 +7,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: require CUDA, print ``nvidia-smi`` name and power limit;
 2. build: compile ``src/repro_torch/kernels/csrc/planes.cu``,
-   ``flash_attention_sm90.cu`` and ``flash_attention_tf32.cu`` with nvcc
-   (with ``-Xptxas -v``), one process per source, in parallel; print each
-   flash kernel's registers and spills and the count of its tensor-core
-   instructions in its SASS (``cuobjdump -sass``): ``HGMMA`` (wgmma), which
-   every sm90 instance (D 64, 80, 128) must hold with no spilled byte and no
-   wgmma that ptxas serialised, and ``HMMA`` (mma.sync), which every tf32
-   instance (each head dim in float32 and bf16) must hold;
+   ``flash_attention_sm90.cu``, ``flash_attention_sm90_tf32.cu`` and
+   ``flash_attention_tf32.cu`` with nvcc (with ``-Xptxas -v``), one process
+   per source, in parallel; print each flash kernel's registers and spills
+   and the count of its tensor-core instructions in its SASS (``cuobjdump
+   -sass``): ``HGMMA`` (wgmma), which every sm90 and sm90_tf32 instance (D 64,
+   80, 128) must hold with no spilled byte and no wgmma that ptxas
+   serialised, and ``HMMA`` (mma.sync), which every tf32 instance (each head
+   dim in float32 and bf16) must hold;
 3. kernels: each of the six storage kernels against its plain PyTorch version
    on the card, byte for byte (bit counts exactly), at word widths 1/2/4/8 and
    awkward lengths (the word XOR also on operands off a 16-byte boundary and at
@@ -23,7 +24,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plus a hamming total past 2^32 bits, also checked with numpy;
 4. store: the port's ``ZLLMStore`` (default torch backend, on the card)
    ingests one dense family at Qwen2-7B's published widths, depth cut from 28
-   decoder layers to 2 (full-vocabulary embedding and lm_head kept) — a base
+   decoder layers to 1 (full-vocabulary embedding and lm_head kept) — a base
    (ZipNN lane), a fine-tune declaring its base (BitX lane), a fine-tune
    matched by bit distance and an exact re-upload (file dedup) — and
    retrieves every file, sha256-checked against its source; the kernel launch
@@ -64,21 +65,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    tests' band checks. The hamming launches of phases 4b and 6 show that bit
    distance went through its kernel;
 7. serve: the paper's serving cold start at Qwen2-7B's published widths,
-   depth cut from 28 decoder layers to 2 (full-vocabulary embed and lm_head
+   depth cut from 28 decoder layers to 1 (full-vocabulary embed and lm_head
    kept). Base parameters drawn on the card with ``init_params``, a fine-tune
    from ``make_finetune``, both written as ``params/<name>`` BF16 safetensors
    and ingested into the port's store (the fine-tune BitX-coded against its
    declared base); ``ServeEngine.from_store`` cold-starts the fine-tune
    (params bit-equal to the source) and ``RequestBatcher(batch_size=4,
    n_new=16)`` serves 8 requests of 33-2032 prompt tokens. Prefill runs the
-   flash kernel in every layer (exactly 2 layers x 2 prefills). The same
+   flash kernel in every layer (exactly 1 layer x 2 prefills). The same
    requests are then served again with each flash call held against its plain
    version on its own inputs, and the prefill logits of the flash and plain
    attention engines are held to the float32 model's. Every flash call of the
    serving run takes the ``sm90`` route. That float32 model (the same
    parameters, plain attention) is then run through attn="flash" on the same
-   batches: exactly 2 layers x 2 prefills of the ``tf32`` route (none on
-   another), each call held against its plain version within 2e-5, the logits
+   batches: exactly 1 layer x 2 prefills of the float32 route at D 128
+   (``sm90_tf32``; none on another), each call held against its plain
+   version within 2e-5, the logits
    within 1e-4 of the plain float32 model's max |logit|, the greedy tokens
    equal, each prefill timed against plain attention;
 8. hub server: phase 7's store (index saved, closed) served by
@@ -113,8 +115,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    counted by route in the served run; every flash call of a prefill held
    against its plain version; the flash and plain engines' prefill logits
    against a float32 copy of the model; that float32 copy through attn="flash"
-   as in phase 7 (whisper's 72 and zamba2's 9 calls a prefill on the ``tf32``
-   route, D 64 and 80); prefill S + one decode step against
+   as in phase 7 (whisper's 72 and zamba2's 9 calls a prefill on the float32
+   route of D 64 and 80, ``sm90_tf32``); prefill S + one decode step against
    prefill S + 1; ``_pad_cache`` growing exactly the attention caches
    (falcon-mamba's cache bytes the same at 128 and 1024 tokens); prefill ms
    (served and warm), decode ms per step, tokens/s and peak device memory,
@@ -192,23 +194,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``long_500k`` on the multi-pod mesh dry-run with 11b's cells. The results
    go on a JSON line of their own (``mesh_families``).
 
-Phase 3 also holds the flash-attention kernels (routes ``sm90`` and ``tf32``)
+Phase 3 also holds the flash-attention kernels (routes ``sm90``, ``sm90_tf32`` and ``tf32``)
 against their plain version (``ref.mha_reference``) at the reference tests'
 cases, ragged lengths, every head dim (80 included), Sq != Sk, bidirectional
 and windowed masks, fully masked rows, the edges of the sm90 kernel's 64-key
 tiles, strided (fused-projection) and misaligned operands (float32 and bf16
 slices 2-8 bytes off a 16-byte boundary) and heads broadcast with stride 0,
 asserting the route of each call (bf16 at D 64, 80 and 128 with
-TMA-addressable operands takes ``sm90``, every other call ``tf32``). It times
+TMA-addressable operands takes ``sm90``, float32 at those head dims with such
+operands ``sm90_tf32``, every other call ``tf32``). It times
 each ``sm90`` instance at its path's shape: D 128 at the shapes phase 7's
-prefills give the kernel (B 4, S 2032 and 512, H 28, causal) and at S 2048,
-D 80 at zamba2-2.7b's (4, 1024, 32, causal), D 64 at whisper-medium's
+prefills give the kernel (B 4, S 2032 and 512, H 28, causal), D 80 at zamba2-2.7b's (4, 1024, 32, causal), D 64 at whisper-medium's
 encoder (4, 1500, 16, bidirectional); D 128 also at a 32k-token prompt (B 1,
 S 32768, H 28, causal), its rows 0-2047 held to the plain version on the
 first 2048 keys (exact by causality) and every row to SDPA's output; ``tf32``
-in bf16 at D 256 (B 4, S 2048, H 16, causal) and, on float32 inputs, at phase
-7's, zamba2-2.7b's and whisper-medium's encoder shapes; each beside its bound
-(float32 at the TF32 rate, with the three passes' ceiling), the plain version
+in bf16 at D 256 (B 4, S 2048, H 16, causal); on float32 inputs, at phase
+7's, zamba2-2.7b's and whisper-medium's encoder shapes, ``sm90_tf32`` and
+``tf32`` each launched directly, in turns; each beside its bound (float32 at
+the TF32 rate, with the three passes' ceiling), the plain version
 and ``torch.nn.functional.scaled_dot_product_attention`` (on float32 inputs
 with TF32 off, the backend it dispatched to named), with the wrapper's host
 time per call.
@@ -274,7 +277,9 @@ TF32_FLOP_PER_S = 495e12   # H100 SXM published dense TF32 tensor-core rate
 # Qwen2-7B's published widths (src/repro/configs/qwen2_7b.py:5-12)
 QWEN2_7B = dict(d_model=3584, d_ff=18944, vocab=152064, n_heads=28, n_kv_heads=4, qkv_bias=True)
 QWEN2_7B_LAYERS = 28
-SMOKE_LAYERS = 2
+# of 28 in phases 4-4c: cut from 2 to 1 when, at 2 here and 1 in phases 7-8,
+# the whole smoke ran 1269 s on an H100 (700 W) whose host was slow
+SMOKE_LAYERS = 1
 
 # the four uploads of phase 4: base, declared fine-tune, undeclared fine-tune, re-upload
 UPLOADS = ("qwen/base", "alice/ft-declared", "bob/ft-undeclared", "mirror/ft-declared-reupload")
@@ -293,10 +298,12 @@ KERNELS = {
 }
 SOURCE = "src/repro_torch/kernels/csrc/planes.cu"
 # the routes of the flash-attention wrapper (kernels/flash_attention.py::route
-# picks sm90 or tf32)
+# picks sm90, sm90_tf32 or tf32)
 FLASH = {
     "sm90": {"name": "flash_attention_sm90",
              "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"},
+    "sm90_tf32": {"name": "flash_attention_sm90_tf32",
+                  "source": "src/repro_torch/kernels/csrc/flash_attention_sm90_tf32.cu"},
     "tf32": {"name": "flash_attention_tf32",
              "source": "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"},
 }
@@ -305,7 +312,9 @@ FLASH_LIBRARY = "torch.nn.functional.scaled_dot_product_attention"
 
 # the serving run of phase 7 (its store is phase 8's)
 SERVE_REPOS = ("qwen/base-serve", "alice/ft-serve")  # base, fine-tune declaring it
-SERVE_LAYERS = 2                # of 28: cut from 4 to keep the smoke under 1000 s
+# of 28 in phases 7-8: cut from 4 to 2, then to 1 when the whole smoke at 2
+# layers here as in phases 4-4c ran 1207 s on an H100 (700 W), past its limit
+SERVE_LAYERS = 1
 SERVE_PROMPTS = (2032, 1500, 1024, 700, 512, 300, 128, 33)
 SERVE_BATCH, SERVE_NEW = 4, 16
 # Prefill logits of the bf16 engines are held to the float32 model on the same
@@ -534,9 +543,9 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_flash_kern
 # (B, S) of the timed shapes, all bf16 causal at Qwen2-7B's 28 query heads of
 # dim 128 (the 4 KV heads expanded). Phase 7's batcher left-pads each batch of
 # 4 prompts to its longest, so its two prefills give the kernel S = 2032 (not a
-# multiple of either tile) and S = 512; S = 2048 is the power of two beside
-# them. The kernels line reports the first, the largest shape of the path.
-FLASH_TIMED = ((4, 2032), (4, 512), (4, 2048))
+# multiple of either tile) and S = 512. The kernels line reports the first,
+# the largest shape of the path.
+FLASH_TIMED = ((4, 2032), (4, 512))
 FLASH_H, FLASH_D = 28, 128
 # float32 shapes the tf32 route is timed at (B, S, H, D, causal), each beside
 # the plain version and SDPA on float32 inputs:
@@ -562,7 +571,13 @@ FLASH_OFFSETS = ((torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 1),
 
 def flash_route(dtype, D: int) -> str:
     """The route a new contiguous operand of this dtype and head dim takes."""
-    return "sm90" if dtype == torch.bfloat16 and D in fa.SM90_HEAD_DIMS else "tf32"
+    t = torch.empty((1, 1, 1, D), dtype=dtype, device=DEVICE)
+    return fa.route(t, t, t)
+
+
+def only(route: str, n: int) -> dict:
+    """Launches by route: ``n`` on ``route``, none on another."""
+    return {r: n if r == route else 0 for r in fa.ROUTE_LAUNCHES}
 
 
 def held_to_plain(got, q, k, v, causal: bool, window: int = 0) -> float:
@@ -625,30 +640,46 @@ def sdpa_backend(q, k, v, causal: bool) -> str:
 
 def time_flash_f32(label: str, B: int, S: int, H: int, D: int, causal: bool,
                    gen: torch.Generator) -> dict:
-    """The tf32 route at a float32 shape beside the plain version and SDPA on
-    the same float32 inputs (TF32 off)."""
+    """The two float32 kernels at a float32 shape, each launched directly (so
+    the one the route does not pick is timed too) and held to the plain
+    version: sm90_tf32 (wgmma) and tf32 (mma.sync), in turns, beside the
+    plain version and SDPA on the same float32 inputs (TF32 off), the bound
+    at the TF32 rate and the three passes' ceiling."""
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE) for _ in range(3))
-    tf32 = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    calls = {route: (lambda route=route: fa._launch(route, q, k, v, causal, 0))
+             for route in ("sm90_tf32", "tf32")}
     r = {"shape": [B, S, H, D], "causal": causal, "dtype": "float32",
-         "max_abs_err": flash_checked(q, k, v, causal, route="tf32")[1]}
+         "route": flash_route(torch.float32, D)}
+    for route, fn in calls.items():
+        r[route] = {"max_abs_err": held_to_plain(fn(), q, k, v, causal), "ms": []}
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, S, D), same storage
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=causal)
     r["library_backend"] = sdpa_backend(qt, kt, vt, causal)
-    r["ms"], r["host_us"] = cuda_ms(tf32), host_us(tf32)
+    for route in ("sm90_tf32", "tf32", "tf32", "sm90_tf32"):  # in turns
+        r[route]["ms"].append(cuda_ms(calls[route]))
+    for route, fn in calls.items():
+        r[route]["ms"] = min(r[route]["ms"])
+        r[route]["host_us"] = host_us(fn)
     r["plain_ms"] = cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal), iters=3)
     r["library_ms"] = cuda_ms(sdpa)
     r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal, torch.float32)
     r["passes_bound_ms"], _ = flash_bound(B, S, H, D, causal, torch.float32, passes=3)
     mode = "causal" if causal else "bidirectional"
-    log(f"kernel flash_attention_tf32 (tf32): {r['ms']:.4f} ms at {label} B={B} S={S} H={H} "
-        f"D={D} float32 {mode} (bound {r['bound_ms']:.4f} ms by {r['bound_by']} at 495 TFLOP/s "
-        f"TF32, {r['bound_ms'] / r['ms']:.1%} of it; three passes' ceiling "
-        f"{r['passes_bound_ms']:.4f} ms, {r['passes_bound_ms'] / r['ms']:.1%} of it); host "
-        f"{r['host_us']:.1f} us per call; plain version {r['plain_ms']:.4f} ms; library: "
-        f"{FLASH_LIBRARY} float32 ({r['library_backend']}, allow_tf32 off) {r['library_ms']:.4f} ms "
-        f"({r['library_ms'] / r['ms']:.2f}x the kernel's speed); max_abs_err "
-        f"{r['max_abs_err']:.3e} (tolerance 2e-5)")
+    for route in calls:
+        t = r[route]
+        log(f"kernel {FLASH[route]['name']} ({route}{', routed' if route == r['route'] else ''}): "
+            f"{t['ms']:.4f} ms at {label} B={B} S={S} H={H} D={D} float32 {mode} (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} at 495 TFLOP/s TF32, "
+            f"{r['bound_ms'] / t['ms']:.1%} of it; three passes' ceiling "
+            f"{r['passes_bound_ms']:.4f} ms, {r['passes_bound_ms'] / t['ms']:.1%} of it); host "
+            f"{t['host_us']:.1f} us per call; plain version {r['plain_ms']:.4f} ms; library: "
+            f"{FLASH_LIBRARY} float32 ({r['library_backend']}, allow_tf32 off) "
+            f"{r['library_ms']:.4f} ms ({r['library_ms'] / t['ms']:.2f}x the kernel's speed); "
+            f"max_abs_err {t['max_abs_err']:.3e} (tolerance 2e-5)")
+    log(f"kernel flash_attention at {label} float32: sm90_tf32 {r['sm90_tf32']['ms']:.4f} ms, "
+        f"tf32 {r['tf32']['ms']:.4f} ms ({r['tf32']['ms'] / r['sm90_tf32']['ms']:.2f}x); the route "
+        f"takes {r['route']}")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return r
@@ -693,10 +724,10 @@ def time_flash_long(gen: torch.Generator) -> dict:
 
 def phase_flash(gen: torch.Generator) -> dict:
     """The flash kernels against their plain version; their times at the
-    serving path's shapes. Returns each route's report entry (sm90: phase 7's
-    bf16 S 2032 shape; tf32: its float32 twin) and, under "sm90_80",
-    "sm90_64", "sm90_long", "f32" and "d256", the other sm90 instances, the
-    32k row, every float32 and the D 256 timing."""
+    serving path's shapes. Returns sm90's report entry (phase 7's bf16 S 2032
+    shape) and, under "sm90_80", "sm90_64", "sm90_long", "f32" and "d256",
+    the other sm90 instances, the 32k row, the float32 timings of sm90_tf32
+    and tf32 and the D 256 timing."""
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     bf16 = torch.bfloat16
     fa.reset_route_launches()
@@ -719,6 +750,11 @@ def phase_flash(gen: torch.Generator) -> dict:
         q = buf[..., 1:1 + D]
         err = flash_checked(q, qkv[:, :, 4:8], qkv[:, :, 8:], True, route="tf32")[1]
         worst[("bfloat16", "tf32")] = max(worst[("bfloat16", "tf32")], err)
+    for D in fa.SM90_HEAD_DIMS:
+        # float32 slices of one fused projection, read in place by TMA
+        qkv = torch.randn((2, 130, 12, D), generator=gen, device=DEVICE)
+        err = flash_checked(qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:], True, route="sm90_tf32")[1]
+        worst[("float32", "sm90_tf32")] = max(worst[("float32", "sm90_tf32")], err)
     for dt, off in FLASH_OFFSETS:
         for D in (16, 80, 128, 256):
             # q a slice `off` elements into wider rows, k's heads broadcast
@@ -740,7 +776,7 @@ def phase_flash(gen: torch.Generator) -> dict:
         + ", ".join(f"{dt} {r} {e:.3e}" for (dt, r), e in sorted(worst.items()))
         + " (tolerance 2e-5 in float32, 2e-2 in bf16, as rtol and atol)")
 
-    reports = {}
+    reports = {"worst": {f"{dt} {r}": e for (dt, r), e in worst.items()}}
     H, D = FLASH_H, FLASH_D
     for B, S in FLASH_TIMED:
         q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(bf16)
@@ -789,10 +825,10 @@ def phase_flash(gen: torch.Generator) -> dict:
         f"{d256['library_ms']:.4f} ms; max_abs_err {d256['max_abs_err']:.3e} (tolerance 2e-2)")
     del q, k, v, qt, kt, vt
 
-    # float32 at the families' shapes: tf32 beside the plain version and SDPA
+    # float32 at the families' shapes: sm90_tf32 and tf32 beside the plain
+    # version and SDPA
     f32 = {label: time_flash_f32(label, *shape, gen)
            for label, shape in FLASH_TIMED_F32.items()}
-    reports["tf32"] = f32["phase 7"]
     reports["f32"], reports["d256"] = f32, d256
     torch.cuda.empty_cache()
     return reports
@@ -828,9 +864,10 @@ def flash_build_report() -> dict:
     """Per flash kernel instance: registers, spilled bytes and whether ptxas
     serialised its wgmma (from the build's ``-Xptxas -v``) and its tensor-core
     instructions in its SASS (``cuobjdump -sass``): HGMMA (wgmma) and HMMA
-    (mma.sync). Raises if an sm90 instance (one per head dim of the route) is
-    missing, holds no HGMMA, spills or had its wgmma serialised, or a tf32
-    instance (one per head dim and dtype) is missing or holds no HMMA."""
+    (mma.sync). Raises if an sm90 or sm90_tf32 instance (one per head dim of
+    the kernel) is missing, holds no HGMMA, spills or had its wgmma
+    serialised, or a tf32 instance (one per head dim and dtype) is missing or
+    holds no HMMA."""
     info = {}
     blank = {"registers": None, "spill_stores": None, "spill_loads": None,
              "wgmma_serialized": None, "hgmma": None, "hmma": None}
@@ -876,18 +913,18 @@ def flash_build_report() -> dict:
         mma = ("not available (no cuobjdump)" if r["hgmma"] is None else
                f"HGMMA {r['hgmma']}, HMMA {r['hmma']}")
         log(f"build: {name}: {regs}; tensor-core instructions in its SASS: {mma}")
-    for D in fa.SM90_HEAD_DIMS:
-        r = info.get(f"flash_fwd_sm90_kernel<{D}>", blank)
+    wgmma_instances = ([f"flash_fwd_sm90_kernel<{D}>" for D in fa.SM90_HEAD_DIMS]
+                       + [f"flash_fwd_sm90_tf32_kernel<{D}>" for D in fa.SM90_HEAD_DIMS])
+    for name in wgmma_instances:
+        r = info.get(name, blank)
         if r["registers"] is not None and (r["spill_stores"] or r["spill_loads"]
                                            or r["wgmma_serialized"]):
-            raise AssertionError(f"flash_fwd_sm90_kernel<{D}> spills or has its wgmma "
-                                 f"serialised: {r}")
+            raise AssertionError(f"{name} spills or has its wgmma serialised: {r}")
     if sass is not None:
-        sm90 = {D: info.get(f"flash_fwd_sm90_kernel<{D}>", {}).get("hgmma")
-                for D in fa.SM90_HEAD_DIMS}
-        if not all(sm90.values()):
-            raise AssertionError(f"an sm90 flash kernel instance is missing or holds no HGMMA "
-                                 f"instruction: {sm90}; {info}")
+        hgmma = {name: info.get(name, {}).get("hgmma") for name in wgmma_instances}
+        if not all(hgmma.values()):
+            raise AssertionError(f"an sm90 or sm90_tf32 flash kernel instance is missing or holds "
+                                 f"no HGMMA instruction: {hgmma}; {info}")
         tf32 = {n: r["hmma"] for n, r in info.items() if n.startswith("flash_fwd_tf32_kernel")}
         if len(tf32) != 2 * len(fa.HEAD_DIMS) or not all(tf32.values()):
             raise AssertionError(f"a tf32 flash kernel instance is missing or holds no HMMA "
@@ -1073,7 +1110,7 @@ CHURN_SEQUENCES = ((0, 1, 8, 112, 0), (0, 0, 1, 8, 112, 0), (0, 0, 1, 8, 116, 0)
                    (0, 0, 74, 115570, 160, 74), (0, 0, 362811, 3, 112, 362811),
                    (0, 0, 688394, 938982, 68, 688394))
 CHURN_TENSORS, CHURN_ELEMS = 3, 64  # the harness's file: 3 float32 tensors of 64
-# C keeps the base's vocabulary tables (70% of the file at 2 layers): the
+# C keeps the base's vocabulary tables (82% of the file at 1 layer): the
 # ZipNN lane codes each of them in one single-threaded entropy job, about 40 s
 # a table on the card's host, twice in the phase, which the smoke's time cannot
 # hold; the re-registration keeps the fine-tune's own tables for the same reason
@@ -1534,7 +1571,7 @@ def phase_serve(tmp: str, seed: int) -> tuple:
     routes = fa.route_launches()
     peak = torch.cuda.max_memory_allocated()
     n_prefills = -(-len(prompts) // SERVE_BATCH)
-    if launches != SERVE_LAYERS * n_prefills or routes != {"sm90": launches, "tf32": 0}:
+    if launches != SERVE_LAYERS * n_prefills or routes != only("sm90", launches):
         raise AssertionError(f"serve: {launches} flash launches (by route {routes}), want "
                              f"{SERVE_LAYERS} layers x {n_prefills} prefills, all sm90")
     for t in toks:
@@ -1586,7 +1623,7 @@ def phase_serve(tmp: str, seed: int) -> tuple:
         logits32.append(l32)
         drift["flash"].append(float((lf - l32).abs().max()))
         drift["plain"].append(float((lp - l32).abs().max()))
-    # the same float32 parameters and batches through attn="flash": the tf32 route
+    # the same float32 parameters and batches through attn="flash": sm90_tf32 at D 128
     f32 = float32_flash("serve", dataclasses.replace(cfg, param_dtype="float32",
                                                      act_dtype="float32"),
                         params32, prefill.batches, model32, logits32, SERVE_LAYERS)
@@ -1621,14 +1658,15 @@ F32_LOGIT_TOL = 1e-4  # of the float32 plain model's max |logit|: float32 flash 
 
 def float32_flash(name: str, cfg32, params32: dict, batches: list, plain32, logits32: list,
                   n_calls: int) -> dict:
-    """The float32 model's prefills through attn="flash" (the tf32 route) on
-    the batches its attn="plain" twin ``plain32`` gave ``logits32``: a run
-    counted from 0 (exactly ``n_calls`` tf32 launches a prefill, none on
-    another route), each flash call held against its plain version on its own
-    inputs, the logits within F32_LOGIT_TOL of the plain model's max |logit|
-    and the greedy tokens equal; each prefill timed, flash (the counted run)
-    and then plain (both warm: ``plain32`` ran these batches already, and
-    the two models run the same GEMMs)."""
+    """The float32 model's prefills through attn="flash" on the batches its
+    attn="plain" twin ``plain32`` gave ``logits32``: a run counted from 0
+    (exactly ``n_calls`` launches a prefill on the float32 route of the
+    model's head dim, sm90_tf32 or tf32, none on another route), each flash
+    call held against its plain version on its own inputs, the logits within
+    F32_LOGIT_TOL of the plain model's max |logit| and the greedy tokens
+    equal; each prefill timed, flash (the counted run) and then plain (both
+    warm: ``plain32`` ran these batches already, and the two models run the
+    same GEMMs)."""
     def timed(m, b):  # (logits, ms) of one prefill
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1637,18 +1675,19 @@ def float32_flash(name: str, cfg32, params32: dict, batches: list, plain32, logi
         return lg, 1e3 * (time.perf_counter() - t0)
 
     model = get_model(cfg32, attn="flash")
+    route = flash_route(torch.float32, cfg32.hd)
     fa.reset_route_launches()
     _build.reset_launch_counts()
     logits, flash_ms = zip(*(timed(model, b) for b in batches))
     routes, launched = fa.route_launches(), _build.launch_counts()["flash_attention"]
-    want = {r: n_calls * len(batches) if r == "tf32" else 0 for r in routes}
-    if routes != want or launched != want["tf32"]:
+    want = only(route, n_calls * len(batches))
+    if routes != want or launched != want[route]:
         raise AssertionError(f"{name} float32 flash: launches by route {routes} ({launched} "
                              f"flash), want {want}")
     errs = []
 
     def checked(q, k, v, *, causal, window=0):
-        got, err = flash_checked(q, k, v, causal, window, route="tf32")
+        got, err = flash_checked(q, k, v, causal, window, route=route)
         errs.append(err)
         return got
 
@@ -1658,8 +1697,8 @@ def float32_flash(name: str, cfg32, params32: dict, batches: list, plain32, logi
             model.prefill(params32, b)
     finally:
         model_base.flash_attention = flash_attention
-    if len(errs) != want["tf32"]:
-        raise AssertionError(f"{name} float32 flash: {len(errs)} calls checked, {want['tf32']} "
+    if len(errs) != want[route]:
+        raise AssertionError(f"{name} float32 flash: {len(errs)} calls checked, {want[route]} "
                              f"launched")
     scale = max(float(l.abs().max()) for l in logits32)
     logit_err = max(float((a - b).abs().max()) for a, b in zip(logits, logits32))
@@ -1668,10 +1707,10 @@ def float32_flash(name: str, cfg32, params32: dict, batches: list, plain32, logi
         raise AssertionError(f"{name} float32 flash: logits {logit_err} from the plain model's "
                              f"(allowed {F32_LOGIT_TOL} x {scale}), greedy tokens equal: {same}")
     per = {"flash": list(flash_ms), "plain": [timed(plain32, b)[1] for b in batches]}
-    r = {"launches": want["tf32"], "flash_err": max(errs),
+    r = {"route": route, "launches": want[route], "flash_err": max(errs),
          "logit_err": logit_err,
          "logit_scale": scale, "tokens_equal": same, "prefill_ms": per}
-    log(f"{name}: float32 model with attn=flash: {want['tf32']} tf32 launches ({n_calls} a "
+    log(f"{name}: float32 model with attn=flash: {want[route]} {route} launches ({n_calls} a "
         f"prefill x {len(batches)}, none on another route), each held to its plain version "
         f"(max_abs_err {r['flash_err']:.3e}, tolerance 2e-5); logits against the float32 plain "
         f"model's {logit_err:.4e} (allowed {F32_LOGIT_TOL} x max |logit| {scale:.4f}), greedy "
@@ -2144,8 +2183,9 @@ def _family_checks(name: str, cfg, engine: ServeEngine, batch: dict, route, modu
                    n_calls: int = 0) -> dict:
     """On the served prefill's batch: every flash call held against its plain
     version (route asserted), the flash and plain engines' logits against the
-    float32 model's, the float32 model through attn="flash" (``n_calls`` tf32
-    launches a prefill; :func:`float32_flash`) where the family attends, and
+    float32 model's, the float32 model through attn="flash" (``n_calls``
+    launches a prefill on its float32 route; :func:`float32_flash`) where the
+    family attends, and
     prefill S + decode one against prefill S + 1."""
     out = {}
     model, params = engine.model, engine.params
@@ -2342,11 +2382,14 @@ def _prefill_by_route(name: str, engine: ServeEngine, batch: dict, module, n_cal
     """Warm prefill ms with the path's flash calls on sm90, as served, and
     with the same calls sent to the tf32 kernel (which takes bf16 operands
     that TMA cannot address), in turns (sm90, tf32, tf32, sm90, ...): what
-    the route is worth end to end."""
+    the route is worth end to end. The tf32 launches of these rerouted
+    prefills are off the path: they are summed from the route counts under
+    their own name."""
     def tf32(q, k, v, *, causal, window=0):
         return fa._launch("tf32", q, k, v, causal, window)
 
     ms = {"sm90": [], "tf32": []}
+    rerouted = 0
     for i in range(ZAMBA2_ROUTE_PAIRS):
         for r in (("sm90", "tf32") if i % 2 == 0 else ("tf32", "sm90")):
             module.flash_attention = tf32 if r == "tf32" else flash_attention
@@ -2359,15 +2402,17 @@ def _prefill_by_route(name: str, engine: ServeEngine, batch: dict, module, n_cal
             finally:
                 module.flash_attention = flash_attention
             ms[r].append(1e3 * (time.perf_counter() - t0))
-            if fa.route_launches()[r] != n_calls:
+            launched = fa.route_launches()
+            if launched != only(r, n_calls):
                 raise AssertionError(f"families {name}: a prefill sent to {r} launched "
-                                     f"{fa.route_launches()}, want {n_calls} on {r}")
+                                     f"{launched}, want {n_calls} on {r}")
+            rerouted += launched["tf32"]
     med = {r: float(np.median(v)) for r, v in ms.items()}
     log(f"families {name}: warm prefill with its {n_calls} flash calls on sm90 / on tf32, in "
         f"turns: medians {med['sm90']:.2f} / {med['tf32']:.2f} ms (difference "
         f"{med['tf32'] - med['sm90']:.2f} ms; runs sm90 {[round(x, 2) for x in ms['sm90']]}, tf32 "
         f"{[round(x, 2) for x in ms['tf32']]})")
-    return {"ms": ms, "median_ms": med}
+    return {"ms": ms, "median_ms": med, "rerouted_tf32_launches": rerouted}
 
 
 def phase_zamba2(seed: int, smi: str) -> tuple:
@@ -3069,7 +3114,7 @@ def phase_mesh(tmp: str, seed: int, smi: str, dryruns: dict | None = None) -> di
         logits_one, _ = get_model(cfg, attn="flash").prefill(local, {"tokens": prompts})
         del cache
         prefill_err = _rel_err(logits_mesh, logits_one)
-        if routes != {"sm90": cfg.n_layers, "tf32": 0}:
+        if routes != only("sm90", cfg.n_layers):
             raise AssertionError(f"mesh: the mesh prefill launched {routes}, want "
                                  f"{cfg.n_layers} sm90 launches")
         if not prefill_err <= MESH_PREFILL_TOL:
@@ -3150,7 +3195,7 @@ def _mesh_family_serve(name: str, cfg, engines, prompts, extra, head_dim: int, n
         runs[which]["launches"] = _build.launch_counts()["flash_attention"]
         runs[which]["routes"] = fa.route_launches()
     routes = runs["mesh"]["routes"]
-    if runs["mesh"]["launches"] != n_calls or routes != {"sm90": n_calls, "tf32": 0}:
+    if runs["mesh"]["launches"] != n_calls or routes != only("sm90", n_calls):
         raise AssertionError(f"mesh families {name}: the mesh engine's prefill launched "
                              f"{runs['mesh']['launches']} flash calls by route {routes}, want "
                              f"{n_calls} on sm90")
@@ -3330,8 +3375,11 @@ def main() -> int:
     build_info = flash_build_report()
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t3 = time.perf_counter()
     report = phase_kernels(gen)
     flash_reports = phase_flash(gen)
+    log(f"kernels: phase 3 took {time.perf_counter() - t3:.1f} s")
+    t4 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-")
     try:
         launches = phase_store(tmp, SEED)
@@ -3343,9 +3391,12 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["hamming"] += phase_calibration()
+    log(f"store: phases 4-6 took {time.perf_counter() - t4:.1f} s")
     tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-serve-")
     try:
+        t7 = time.perf_counter()
         launches["flash_attention"], path_err, serve32 = phase_serve(tmp, SEED)
+        log(f"serve: phase 7 took {time.perf_counter() - t7:.1f} s")
         t8 = time.perf_counter()
         hub = phase_hub(tmp, SEED, smi)
         log(f"hub: phase 8 took {time.perf_counter() - t8:.1f} s")
@@ -3399,11 +3450,13 @@ def main() -> int:
             "card": smi,
         })
     # each flash route's row: the numbers at the largest shape of its path
-    # (sm90: phase 7's S 2032 bf16 prefill, D 128; tf32: the same shape in
-    # float32, phase 7's float32 prefill), and per instance its path's shape,
-    # launches and build report (sm90: D 128 phase 7, D 80 9b, D 64 9a, each
-    # timed in phase 3, and D 128 at a 32k-token prompt; tf32: float32 D 128
-    # phase 7, D 80 9b, D 64 9a, and bf16 D 256, which no path takes)
+    # (sm90: phase 7's S 2032 bf16 prefill, D 128; sm90_tf32 and tf32: the
+    # same shape in float32, phase 7's float32 prefill), and per instance its
+    # path's shape, launches and build report (sm90: D 128 phase 7, D 80 9b,
+    # D 64 9a, each timed in phase 3, and D 128 at a 32k-token prompt;
+    # sm90_tf32: float32 D 128 phase 7, D 80 9b, D 64 9a; tf32, which no path
+    # of the smoke takes: the same float32 shapes, each timed in phase 3
+    # beside sm90_tf32, bf16 D 80 at 9b's shape and bf16 D 256)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     timed = families["timed"]
     mf = mesh_families["launches"]
@@ -3418,14 +3471,20 @@ def main() -> int:
                        "phases 9a and 12a (whisper-medium, unsharded and on a (1, 1) mesh)")}
     long = flash_reports["sm90_long"]
     w32, z32 = (families[n]["float32_flash"] for n in ("whisper", "zamba2"))
-    tf32_paths = {(torch.float32, 128): (f32["phase 7"], serve32["launches"],
-                                         "phase 7 (the float32 model's prefills)"),
-                  (torch.float32, 80): (f32["zamba2"], z32["launches"],
-                                        "phase 9b (zamba2-2.7b's float32 prefill)"),
-                  (torch.float32, 64): (f32["whisper encoder"], w32["launches"],
-                                        "phase 9a (whisper-medium's float32 prefill)"),
-                  (torch.bfloat16, 256): (flash_reports["d256"], 0,
-                                          "phase 3 only: no path gives bf16 at D 256")}
+    # the float32 prefills, each on sm90_tf32 (checked below): (phase 3's
+    # timing at the path's shape, the path's run)
+    f32_paths = {128: (f32["phase 7"], serve32, "phase 7 (the float32 model's prefills)"),
+                 80: (f32["zamba2"], z32, "phase 9b (zamba2-2.7b's float32 prefill)"),
+                 64: (f32["whisper encoder"], w32, "phase 9a (whisper-medium's float32 prefill)")}
+    if any(run["route"] != "sm90_tf32" for _, run, _ in f32_paths.values()):
+        raise AssertionError(f"a float32 prefill left sm90_tf32: {f32_paths}")
+    rerouted = families["zamba2"]["prefill_by_route"]["rerouted_tf32_launches"]
+
+    def f32_numbers(r: dict, route: str) -> dict:  # one float32 kernel's numbers at a shape
+        return {**{k: r[k] for k in keys if k in r}, **r[route],
+                **{k: r[k] for k in ("passes_bound_ms", "library_backend")}}
+
+    worst = flash_reports["worst"]
     rows = {
         "sm90": {"main": flash_reports["sm90"],
                  "launches": sum(n for _, n, _ in sm90_paths.values())
@@ -3448,27 +3507,54 @@ def main() -> int:
                             flash_reports["sm90_64"]["max_abs_err"], long["max_abs_err"],
                             families["whisper"]["flash_err"], families["zamba2"]["flash_err"],
                             *(r["flash_err"] for r in mesh_families["serve"].values()))},
-        "tf32": {"main": flash_reports["tf32"],
-                 "launches": sum(n for _, n, _ in tf32_paths.values()),
-                 "launched_by": "phases 7, 9a and 9b (the float32 models' prefills through "
-                                "attn=flash); bf16 at D 16, 32 and 256 and operands TMA cannot "
-                                "address take it too, on no path of the smoke",
+        "sm90_tf32": {"main": f32_numbers(f32["phase 7"], "sm90_tf32"),
+                      "launches": sum(run["launches"] for _, run, _ in f32_paths.values()),
+                      "launched_by": "the float32 models' prefills through attn=flash: "
+                                     + ", ".join(by for _, _, by in f32_paths.values()),
+                      "instance": "flash_fwd_sm90_tf32_kernel<128>",
+                      "instances": {f"flash_fwd_sm90_tf32_kernel<{D}>": {
+                          **f32_numbers(r, "sm90_tf32"), "launches": run["launches"],
+                          "launched_by": by,
+                          **build_info.get(f"flash_fwd_sm90_tf32_kernel<{D}>", {})}
+                          for D, (r, run, by) in f32_paths.items()},
+                      "err": max(worst.get("float32 sm90_tf32", 0.0),
+                                 *(r["sm90_tf32"]["max_abs_err"] for r in f32.values()),
+                                 *(run["flash_err"] for _, run, _ in f32_paths.values()))},
+        "tf32": {"main": f32_numbers(f32["phase 7"], "tf32"),
+                 "launches": 0,
+                 "launched_by": "phase 3 only: no path of the smoke routes a call to it (it takes "
+                                "float32 and bf16 at D 16, 32 and 256 and operands TMA cannot "
+                                "address)",
+                 "rerouted_launches": rerouted,
+                 "rerouted_by": "phase 9b's warm prefills with zamba2-2.7b's bf16 flash calls "
+                                "sent to it, in turns with sm90, off the path",
                  "instance": tf32_instance(torch.float32, 128),
-                 "instances": {tf32_instance(dt, D): {
-                     **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
-                     **{k: r[k] for k in ("passes_bound_ms", "library_backend") if k in r},
-                     **build_info.get(tf32_instance(dt, D), {})}
-                     for (dt, D), (r, n, by) in tf32_paths.items()},
-                 "err": max(flash_reports["tf32"]["max_abs_err"], timed["tf32_zamba2"]["max_abs_err"],
-                            serve32["flash_err"], w32["flash_err"], z32["flash_err"],
-                            *(r["max_abs_err"] for r in f32.values()),
-                            flash_reports["d256"]["max_abs_err"]),
-                 "passes_bound_ms": flash_reports["tf32"]["passes_bound_ms"],
-                 "library_backend": flash_reports["tf32"]["library_backend"]},
+                 "instances": {
+                     **{tf32_instance(torch.float32, D): {
+                         **f32_numbers(r, "tf32"), "launches": 0,
+                         "launched_by": f"phase 3 only: {by} takes sm90_tf32",
+                         **build_info.get(tf32_instance(torch.float32, D), {})}
+                        for D, (r, _, by) in f32_paths.items()},
+                     tf32_instance(torch.bfloat16, 80): {
+                         **{k: timed["tf32_zamba2"][k] for k in keys}, "launches": 0,
+                         "launched_by": "phase 9's timing at zamba2-2.7b's shape only: "
+                                        "zamba2-2.7b's bf16 prefill takes sm90",
+                         "rerouted_launches": rerouted,
+                         **build_info.get(tf32_instance(torch.bfloat16, 80), {})},
+                     tf32_instance(torch.bfloat16, 256): {
+                         **{k: flash_reports["d256"][k] for k in keys}, "launches": 0,
+                         "launched_by": "phase 3 only: no path gives bf16 at D 256",
+                         **build_info.get(tf32_instance(torch.bfloat16, 256), {})}},
+                 "err": max(worst.get("float32 tf32", 0.0), worst.get("bfloat16 tf32", 0.0),
+                            timed["tf32_zamba2"]["max_abs_err"],
+                            *(r["tf32"]["max_abs_err"] for r in f32.values()),
+                            flash_reports["d256"]["max_abs_err"])},
     }
     for route, row in rows.items():
-        extra = {k: row[k] for k in ("instances", "long_prompt", "passes_bound_ms",
-                                     "library_backend") if k in row}
+        extra = {k: row[k] for k in ("instances", "long_prompt", "rerouted_launches",
+                                     "rerouted_by") if k in row}
+        extra.update((k, row["main"][k]) for k in ("passes_bound_ms", "library_backend")
+                     if k in row["main"])
         kernels.append({
             **{k: FLASH[route][k] for k in ("name", "source")}, "route": "cuda",
             "replaces": FLASH_REPLACES, "flash_route": route,

@@ -13,10 +13,10 @@ PyTorch versions.
 Launch counts live here too: each wrapper calls :func:`launch` (the storage
 kernels' ``(*tensors, n, nb)`` convention) or :func:`launch_args` (any other
 launcher, such as flash attention's), which count one launch per kernel call
-that actually reached the card. The two routes of flash attention
-(``zllm_flash_attention_sm90``, ``zllm_flash_attention_tf32``) share one C
-signature and count under ``"flash_attention"``, which names no launcher of
-its own.
+that actually reached the card. The three routes of flash attention
+(``zllm_flash_attention_sm90``, ``zllm_flash_attention_sm90_tf32``,
+``zllm_flash_attention_tf32``) share one C signature and count under
+``"flash_attention"``, which names no launcher of its own.
 
 ``nvcc`` runs with ``-Xptxas -v``; :func:`build_log` keeps what each source's
 compile printed (registers, shared memory and spills of every kernel).
@@ -36,13 +36,14 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["BUILD_DIR", "KERNELS", "SOURCES", "NVCC_FLAGS", "library", "library_path",
+__all__ = ["BUILD_DIR", "KERNELS", "SOURCES", "HEADERS", "NVCC_FLAGS", "library", "library_path",
            "build_seconds", "build_log", "check_bytes", "check_pair", "grid", "launch",
            "launch_args", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "planes.cu", _PKG / "csrc" / "flash_attention_sm90.cu",
-           _PKG / "csrc" / "flash_attention_tf32.cu")
+           _PKG / "csrc" / "flash_attention_sm90_tf32.cu", _PKG / "csrc" / "flash_attention_tf32.cu")
+HEADERS = (_PKG / "csrc" / "sm90_common.cuh",)  # included by the sources: part of the library's hash
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,9 +64,10 @@ _SIGNATURES = {
     "flash_attention": (_P,) * 4 + (_N,) * 5 + (_N,) * 12 + (_NB,) * 3 + (_P,),
 }
 # launchers that are a route of a kernel above: its signature, counted under
-# its name (csrc/flash_attention_sm90.cu, flash_attention_tf32.cu); a kernel
-# they count under has no launcher of its own
-_COUNTED_AS = {"flash_attention_sm90": "flash_attention", "flash_attention_tf32": "flash_attention"}
+# its name (csrc/flash_attention_sm90.cu, flash_attention_sm90_tf32.cu,
+# flash_attention_tf32.cu); a kernel they count under has no launcher of its own
+_COUNTED_AS = {"flash_attention_sm90": "flash_attention", "flash_attention_sm90_tf32": "flash_attention",
+               "flash_attention_tf32": "flash_attention"}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -90,7 +92,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library built from the present sources and flags lives."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libzllm_kernels_{h.hexdigest()[:16]}.so"

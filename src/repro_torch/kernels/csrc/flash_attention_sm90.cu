@@ -2,10 +2,10 @@
 // dim 64, 80 or 128: the tensor-core route of the port's prefill (D 128: the
 // transformer families; D 80: zamba2-2.7b's shared attention; D 64: whisper).
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (the Pallas
-// TPU kernel _flash_kernel and its pallas_call) for those calls; every other
-// call (float32, head dims 16/32/256, operands TMA cannot address) takes the
-// TF32 kernel of flash_attention_tf32.cu. kernels/flash_attention.py::route
-// picks.
+// TPU kernel _flash_kernel and its pallas_call) for those calls; float32 at
+// those head dims takes flash_attention_sm90_tf32.cu, and every other call
+// (head dims 16/32/256, operands TMA cannot address) the TF32 kernel of
+// flash_attention_tf32.cu. kernels/flash_attention.py::route picks.
 //
 // What it computes, in this order of arithmetic: scores q.k accumulated in
 // float32 from the bf16 operands; the scale applied to the float32 scores
@@ -102,11 +102,9 @@
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so the
 // library needs no -lcuda.
 
-#include <cmath>
-#include <cstdint>
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -115,7 +113,7 @@ constexpr int kConsumers = 256;   // consumer warpgroups 0 and 1; warpgroup 2 lo
 constexpr int kThreads = 384;
 constexpr int kWarps = 8;         // arrivals that free a stage: one per consumer warp
 constexpr int kPanelCols = 64;    // bf16 columns in one 128-byte swizzled row (one TMA box)
-constexpr float kNegInf = -1e30f; // the reference's finite mask value
+constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 // Shared memory of one block, offsets from a 1024-byte-aligned base (the
 // 128-byte swizzle repeats every 8 rows of 128 bytes). A tile of R rows and D
@@ -142,89 +140,6 @@ struct Layout {
   static constexpr int kAlloc = kBytes + 1024;  // slack to align the dynamic base
 };
 
-struct Strides {
-  int64_t b, s, h;  // element strides of a (B, S, H, D) operand; D is contiguous
-};
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-    if (t0 == 0) {
-      t0 = now;
-    } else if (now - t0 > 4000000000ull) {
-      __trap();
-    }
-  }
-}
-
-// One TMA box {64 columns, rows, 1, 1} at (column, row, head, batch) into
-// shared memory; completion is counted in bytes on the barrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col,
-                                         int row, int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head),
-        "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (all in 16-byte units), layout type 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N committed wgmma groups are still in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of wgmma's registers across
-// the asynchronous region.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -341,11 +256,6 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[
   }
 }
 
-constexpr uint32_t kRowBytes = kPanelCols * 2;  // 128: one swizzled row of a panel
-
-// The descriptor of the same layout at addr + bytes (bytes a multiple of 16;
-// the address field, in 16-byte units, does not overflow below 256 KB)
-__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) { return desc + (bytes >> 4); }
 
 // Issue S = Q K^T for a warpgroup's 64 query rows (dq: the descriptor of its
 // first row in Q's tile) and one KV tile (dk), as one wgmma group: D / 16
@@ -373,90 +283,6 @@ __device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2], const uint32_t (
   wgmma_commit();
 }
 
-// The new running max m of a thread's two rows from their maxima over this
-// tile (reduced over the 4 threads of a row), the factor corr that rescales
-// O and l to it, and l rescaled.
-__device__ __forceinline__ void update_max(float (&mx)[2], float (&m)[2], float (&l)[2], float (&corr)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r]);
-    corr[r] = ex2(m[r] - m_new);
-    m[r] = m_new;
-    l[r] *= corr[r];
-  }
-}
-
-// A thread's kS / 2 values of each of its two rows are reduced in 4
-// independent chains (element i feeds chain ((i >> 2) & 1) * 2 + (i & 1) of
-// row (i >> 1) & 1), so the reductions wait on a quarter of the latencies one
-// chain would.
-__device__ __forceinline__ int chain(int i) { return ((i >> 2) & 1) * 2 + (i & 1); }
-
-template <int kS>
-__device__ __forceinline__ void row_max(const float (&acc_s)[kS], float (&mx)[2]) {
-  float part[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) part[r][c] = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < kS; ++i) part[(i >> 1) & 1][chain(i)] = fmaxf(part[(i >> 1) & 1][chain(i)], acc_s[i]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) mx[r] = fmaxf(fmaxf(part[r][0], part[r][1]), fmaxf(part[r][2], part[r][3]));
-}
-
-template <int kS>
-__device__ __forceinline__ void add_rows(const float (&acc_s)[kS], float (&l)[2]) {
-  float part[2][4] = {};
-#pragma unroll
-  for (int i = 0; i < kS; ++i) part[(i >> 1) & 1][chain(i)] += acc_s[i];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] += (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]);
-}
-
-// The online softmax of one S tile, in place: scale in float32, then mask in
-// the scaled units, then p = 2^(s - m) over the new running max m; l takes
-// p's float32 sum (this thread's columns; the 4 threads of a row add theirs at
-// the end), corr the factor that rescales O to the new max. Accumulator
-// element i is row row0 + 8 * ((i >> 1) & 1), key k0 + 8 * (i >> 2) + col0 +
-// (i & 1); edge says whether any key of the tile can be masked for these rows.
-// A tile with no masked key takes the max of the unscaled scores (scaling by
-// a positive float keeps the max) and folds the scale into the exponent's
-// FFMA: one instruction per score fewer on the path that bounds the kernel.
-template <int kS>
-__device__ __forceinline__ void softmax_tile(float (&acc_s)[kS], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], bool edge, int k0, int row0, int col0,
-                                             int Sk, int causal, int window, float scale_log2) {
-  float mx[2];
-  if (!edge) {
-    row_max(acc_s, mx);
-    mx[0] *= scale_log2;
-    mx[1] *= scale_log2;
-    update_max(mx, m, l, corr);
-#pragma unroll
-    for (int i = 0; i < kS; ++i) acc_s[i] = ex2(fmaf(acc_s[i], scale_log2, -m[(i >> 1) & 1]));
-    add_rows(acc_s, l);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < kS; ++i) {
-    const int kp = k0 + 8 * (i >> 2) + col0 + (i & 1), qp = row0 + 8 * ((i >> 1) & 1);
-    float x = acc_s[i] * scale_log2;
-    if (kp >= Sk) {
-      x = -INFINITY;  // past the last key: no weight, even in a fully masked row
-    } else if ((causal && kp > qp) || (window > 0 && kp <= qp - window)) {
-      x = kNegInf;
-    }
-    acc_s[i] = x;
-  }
-  row_max(acc_s, mx);
-  update_max(mx, m, l, corr);
-#pragma unroll
-  for (int i = 0; i < kS; ++i) acc_s[i] = ex2(acc_s[i] - m[(i >> 1) & 1]);
-  add_rows(acc_s, l);
-}
 
 // p rounded to bf16, packed straight into the A fragments of the PV product:
 // the S accumulator's layout is the A operand's, 16 keys per fragment.
@@ -662,50 +488,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                     : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map over (D, S, H, B) of a bf16 operand with the given element
-// strides; boxes of {64, rows, 1, 1}, 128-byte swizzle, zero fill out of
-// bounds. A dim of extent 1 is only read at coordinate 0, so its stride is
-// free and gets one TMA accepts.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t H, int64_t D,
-                     Strides st, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  auto bytes = [D](int64_t extent, int64_t stride) {
-    return static_cast<cuuint64_t>(extent == 1 ? D * 2 : stride * 2);
-  };
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {bytes(S, st.s), bytes(H, st.h), bytes(B, st.b)};
-  const cuuint32_t box[4] = {kPanelCols, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq, int64_t Sk,
                    int64_t H, Strides sq, Strides sk, Strides sv, Strides so, int causal, int window,
@@ -715,9 +497,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t
   const int64_t q_tiles = (Sq + kBQ - 1) / kBQ;
   if (B > 65535 || H > 65535 || Sq > 0x7fffffff || Sk > 0x7fffffff) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, B, Sq, H, D, sq, kBQ);
-  if (err == cudaSuccess) err = make_map(&tk, k, B, Sk, H, D, sk, Layout<D>::kBKV);
-  if (err == cudaSuccess) err = make_map(&tv, v, B, Sk, H, D, sv, Layout<D>::kBKV);
+  cudaError_t err = make_map(&tq, q, B, Sq, H, D, sq, kBQ, kMapType, 2);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, Sk, H, D, sk, Layout<D>::kBKV, kMapType, 2);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, Sk, H, D, sv, Layout<D>::kBKV, kMapType, 2);
   if (err != cudaSuccess) return err;
   auto kern = flash_fwd_sm90_kernel<D>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

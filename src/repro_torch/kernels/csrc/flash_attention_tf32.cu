@@ -1,8 +1,8 @@
 // Hopper (sm_90a) flash-attention forward pass on the tensor cores for every
-// call the sm90 route does not take: float32 q, k and v at any head dim, and
-// bf16 at head dims 16, 32 and 256 or in operands a TMA tensor map cannot
-// address (a base pointer off a 16-byte boundary, an odd S stride, heads
-// broadcast with stride 0). Replaces src/repro/kernels/flash_attention.py::
+// call the sm90 and sm90_tf32 routes do not take: float32 and bf16 q, k and v
+// at head dims 16, 32 and 256, or in operands a TMA tensor map cannot address
+// (a base pointer off a 16-byte boundary, an odd S stride, heads broadcast
+// with stride 0). Replaces src/repro/kernels/flash_attention.py::
 // flash_attention (the Pallas TPU kernel _flash_kernel and its pallas_call,
 // wrapper at :99) for those calls; kernels/flash_attention.py::route picks.
 //
@@ -78,11 +78,10 @@
 // kernel's speed. mma.sync reaches far less of the TF32 rate than wgmma, and
 // with two blocks of 4 warps an SM the loop waits on its own latencies: tile
 // width, launch bounds, accumulator count and unrolling each moved its time
-// by under 10%. What it leaves for later: wgmma (its TF32 form takes B
-// K-major only, so V would be transposed while staged, and the split B
-// operands would need a hi and a lo copy in shared memory), splitting each K
-// and V element once per block instead of once per warp, and overlapping one
-// tile's softmax with the next tile's products.
+// by under 10%. flash_attention_sm90_tf32.cu does the rest on wgmma for
+// float32 at D 64, 80 and 128 (V staged transposed, each K and V element
+// split once per block, a tile's softmax under the next tile's products), at
+// about twice this kernel's speed; this one keeps the calls it cannot take.
 //
 // The launcher is a plain C function with zllm_flash_attention's signature
 // (no PyTorch headers); cudaGetLastError() out.

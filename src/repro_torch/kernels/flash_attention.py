@@ -1,23 +1,25 @@
 """Flash-attention forward on the card (counterpart of
 ``src/repro/kernels/flash_attention.py``).
 
-``flash_attention`` replaces the Pallas ``flash_attention`` with one of two
-CUDA kernels, picked by :func:`route`: ``"sm90"`` (``csrc/flash_attention_sm90.cu``:
-bf16 tiles on the tensor cores through ``wgmma``, loaded by TMA) for bf16
-operands of head dim 64, 80 or 128 whose base pointers and B/S/H strides TMA
-can address (multiples of 16 bytes), and ``"tf32"``
-(``csrc/flash_attention_tf32.cu``: ``mma.sync`` on TF32 operands, three passes
-of a hi/lo split for float32, one exact pass for bf16) for every other call:
-float32 at any head dim, bf16 at head dims 16, 32 and 256, and bf16 operands
-TMA cannot address. Both take the reference's layout, q (B, Sq, H, D) and k, v
-(B, Sk, H, D) with grouped-query heads already expanded, in float32 or
-bfloat16, and read the operands in place through their strides (the last dim
-must be contiguous): no ``(B*H, S, D)`` transposes, no block-size
-divisibility, ragged Sq and Sk welcome. The kernels are forward-only, as the
-TPU kernel is, so an input that requires grad is refused. A tensor on the CPU
-takes the plain version :func:`repro_torch.kernels.ref.mha_reference`; a CUDA
-tensor launches its route's kernel on the current stream or raises (no route
-falls back to another).
+``flash_attention`` replaces the Pallas ``flash_attention`` with one of three
+CUDA kernels, picked by :func:`route`. Operands of head dim 64, 80 or 128
+whose base pointers and B/S/H strides TMA can address (multiples of 16 bytes)
+take ``"sm90"`` in bf16 (``csrc/flash_attention_sm90.cu``: bf16 tiles on the
+tensor cores through ``wgmma``, loaded by TMA) and ``"sm90_tf32"`` in float32
+(``csrc/flash_attention_sm90_tf32.cu``: ``wgmma`` on TF32 operands, three
+passes of a hi/lo split, each tile split once a block). Every other call takes
+``"tf32"`` (``csrc/flash_attention_tf32.cu``: ``mma.sync`` on TF32 operands,
+three passes for float32, one exact pass for bf16): head dims 16, 32 and 256,
+and operands TMA cannot address. All take the reference's layout, q (B, Sq,
+H, D) and k, v (B, Sk, H, D) with grouped-query heads already expanded, in
+float32 or bfloat16, and read the operands in place through their strides
+(the last dim must be contiguous): no ``(B*H, S, D)`` transposes, no
+block-size divisibility, ragged Sq and Sk welcome. The kernels are
+forward-only, as the TPU kernel is, so an input that requires grad is
+refused. A tensor on the CPU takes the plain version
+:func:`repro_torch.kernels.ref.mha_reference`; a CUDA tensor launches its
+route's kernel on the current stream or raises (no route falls back to
+another).
 """
 
 from __future__ import annotations
@@ -30,12 +32,14 @@ __all__ = ["flash_attention", "route", "route_launches", "reset_route_launches",
            "SM90_HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the head dims the kernels are built for
-SM90_HEAD_DIMS = (64, 80, 128)      # the head dims of the sm90 route
+SM90_HEAD_DIMS = (64, 80, 128)      # the head dims of the wgmma routes, sm90 and sm90_tf32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535  # heads and batch ride the grid's y and z dims
 _TMA_ALIGN = 16         # bytes: a tensor map's base address and strides are multiples of it
 _TMA_STRIDE_LIMIT = 1 << 40  # bytes: and its strides are below it
-_LAUNCHER = {"sm90": "flash_attention_sm90", "tf32": "flash_attention_tf32"}
+_LAUNCHER = {"sm90": "flash_attention_sm90", "sm90_tf32": "flash_attention_sm90_tf32",
+             "tf32": "flash_attention_tf32"}
+_WGMMA_ROUTE = {torch.bfloat16: "sm90", torch.float32: "sm90_tf32"}  # by dtype
 
 # launches per route; _build counts them all under "flash_attention"
 ROUTE_LAUNCHES = {name: 0 for name in _LAUNCHER}
@@ -71,12 +75,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel a call takes: ``"sm90"`` when q, k and v are bf16 with head
-    dim 64, 80 or 128, D contiguous, and every base pointer and every B/S/H byte
-    stride is a positive multiple of 16 below 2^40 (what a TMA tensor map can
-    address; a dim of extent 1 is never stepped, so its stride is free);
-    ``"tf32"`` otherwise. Reads only dtypes, shapes, pointers and strides."""
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or q.shape[-1] not in SM90_HEAD_DIMS:
+    """The kernel a call takes: ``"sm90"`` for bf16 and ``"sm90_tf32"`` for
+    float32 at head dim 64, 80 or 128, when q, k and v share the dtype, D is
+    contiguous, and every base pointer and every B/S/H byte stride is a
+    positive multiple of 16 below 2^40 (what a TMA tensor map can address; a
+    dim of extent 1 is never stepped, so its stride is free); ``"tf32"``
+    otherwise. Reads only dtypes, shapes, pointers and strides."""
+    if (q.dtype not in _WGMMA_ROUTE or not (q.dtype == k.dtype == v.dtype)
+            or q.shape[-1] not in SM90_HEAD_DIMS):
         return "tf32"
     for t in (q, k, v):
         size = t.element_size()
@@ -86,7 +92,7 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
             if extent > 1 and not (0 < stride * size < _TMA_STRIDE_LIMIT
                                    and stride * size % _TMA_ALIGN == 0):
                 return "tf32"
-    return "sm90"
+    return _WGMMA_ROUTE[q.dtype]
 
 
 def route_launches() -> dict:

@@ -147,14 +147,17 @@ def test_flash_plain_path_matches_jax_at_reference_head_dims(D, dtype):
 
 
 def test_head_dim_80_takes_the_tf32_route():
-    """zamba2-2.7b's head dim 80 takes the tf32 kernel where the sm90 kernel
-    does not: in float32, and for a bf16 operand no tensor map can address (a
-    base pointer 2 bytes off a 16-byte boundary)."""
+    """zamba2-2.7b's head dim 80 takes the tf32 kernel where the wgmma kernels
+    do not: for a bf16 or float32 operand no tensor map can address (a base
+    pointer 2 or 4 bytes off a 16-byte boundary); aligned float32 takes
+    sm90_tf32."""
     assert 80 in HEAD_DIMS
     q = torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16)
-    assert route(q.float(), q.float(), q.float()) == "tf32"
+    assert route(q.float(), q.float(), q.float()) == "sm90_tf32"
     off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
     assert off.data_ptr() % 16 == 2 and route(off, q, q) == "tf32"
+    off32 = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+    assert off32.data_ptr() % 16 == 4 and route(off32, q.float(), q.float()) == "tf32"
 
 
 def test_head_dim_80_takes_the_sm90_route():

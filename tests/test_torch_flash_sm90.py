@@ -184,8 +184,13 @@ def test_route_takes_tf32_for_other_head_dims(D):
 
 @pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
 def test_route_takes_tf32_for_float32(D):
+    """float32 never takes sm90: aligned it takes sm90_tf32, and tf32 where a
+    base pointer is off a 16-byte boundary or heads are broadcast."""
     q, k, v = (_bf16((1, 40, 2, D), s).float() for s in range(3))
-    assert fa.route(q, k, v) == "tf32"
+    assert fa.route(q, k, v) == "sm90_tf32"
+    off = _bf16(q.numel() + 1).float()[1:].view(q.shape)
+    assert off.data_ptr() % 16 == 4 and fa.route(off, k, v) == "tf32"
+    assert fa.route(q, k[:, :, :1].expand(1, 40, 2, D), v) == "tf32"
 
 
 @pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
@@ -210,4 +215,4 @@ def test_route_is_a_pure_rule_and_counts_nothing_on_the_cpu():
     fa.reset_route_launches()
     assert fa.route(q, k, v) == fa.route(q, k, v) == "sm90"
     fa.flash_attention(q, k, v)  # the plain version: no kernel, no route count
-    assert fa.route_launches() == {"sm90": 0, "tf32": 0}
+    assert fa.route_launches() == {"sm90": 0, "sm90_tf32": 0, "tf32": 0}

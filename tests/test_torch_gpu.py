@@ -255,7 +255,7 @@ FLASH_CASES = [
     # 4 left-padded to 2032 (not a multiple of either tile) and to 512 tokens
     (4, 2032, 2032, 28, 128, True, 0),
     (4, 512, 512, 28, 128, True, 0),
-    # head dim 80 (zamba2-2.7b's shared attention; sm90 in bf16, tf32 in
+    # head dim 80 (zamba2-2.7b's shared attention; sm90 in bf16, sm90_tf32 in
     # float32): ragged, Sq != Sk, a window, and the family phase's prefill
     *FLASH_CASES_D80,
     # the edges of the sm90 kernel's 64-key tiles and 64-row warpgroups: Sk
@@ -277,6 +277,14 @@ FLASH_CASES = [
 ]
 
 
+def _route(dtype, D):
+    """The route a new contiguous operand of this dtype and head dim takes:
+    at D 64/80/128 sm90 in bf16 and sm90_tf32 in float32, else tf32."""
+    if D not in flash_attention.SM90_HEAD_DIMS:
+        return "tf32"
+    return "sm90" if dtype == torch.bfloat16 else "sm90_tf32"
+
+
 def _qkv(shape_q, shape_k, dtype, seed, device):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device, dtype)
@@ -289,8 +297,9 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, Sq, Sk, H, D, causal, window = case
     q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), dtype, 20, cuda)
-    # contiguous new tensors: bf16 at D 64/80/128 takes sm90, the rest tf32
-    route = "sm90" if dtype == torch.bfloat16 and D in flash_attention.SM90_HEAD_DIMS else "tf32"
+    # contiguous new tensors: bf16 at D 64/80/128 takes sm90, float32 there
+    # sm90_tf32, the rest tf32
+    route = _route(dtype, D)
     assert flash_attention.route(q, k, v) == route
     before = _build.launch_counts()["flash_attention"]
     by_route = flash_attention.route_launches()
@@ -319,6 +328,43 @@ def test_flash_attention_reads_strided_operands(cuda, D):
     got = flash_attention.flash_attention(q, k, v, causal=True)
     want = ref.mha_reference(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
+def test_flash_attention_sm90_tf32_reads_strided_operands(cuda, D, monkeypatch):
+    """float32 q, k and v sliced out of one fused (B, S, 3H, D) projection:
+    the sm90_tf32 kernel reads them in place through their strides (at D 80 a
+    row is 320 bytes, three TMA boxes, the third partly past D), within the
+    reference's 2e-5."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    B, S, H = 2, 130, 4
+    qkv = torch.randn((B, S, 3 * H, D), generator=torch.Generator(device="cuda").manual_seed(23),
+                      device=cuda)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
+    assert not q.is_contiguous() and flash_attention.route(q, k, v) == "sm90_tf32"
+    before = flash_attention.route_launches()["sm90_tf32"]
+    for causal, window in ((True, 0), (False, 0), (True, 33)):
+        got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.mha_reference(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert flash_attention.route_launches()["sm90_tf32"] == before + 3
+
+
+@pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
+def test_flash_attention_sm90_tf32_kernel_at_each_head_dim(cuda, D, monkeypatch):
+    """The sm90_tf32 kernel launched directly at each head dim it is built
+    for, at ragged lengths and the edges of its 32- and 64-key tiles, within
+    the reference's 2e-5."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for B, Sq, Sk, causal, window in ((2, 77, 77, True, 0), (1, 100, 31, False, 0),
+                                      (1, 100, 33, False, 0), (1, 129, 129, True, 0),
+                                      (1, 200, 200, True, 65), (1, 128, 16, False, 8),
+                                      (1, 64, 300, False, 0)):
+        q, k, v = _qkv((B, Sq, 2, D), (B, Sk, 2, D), torch.float32, D + Sk, cuda)
+        got = flash_attention._launch("sm90_tf32", q, k, v, causal, window)
+        torch.cuda.synchronize()
+        want = ref.mha_reference(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
@@ -362,12 +408,12 @@ def test_flash_attention_tf32_reads_any_alignment(cuda, dtype, offset, monkeypat
 
 
 def test_flash_attention_route_rules_by_head_dim(cuda):
-    """bf16 at D 64, 80 and 128 takes sm90; the other head dims, and float32
-    at any, take tf32; both launch and match the plain version."""
+    """bf16 at D 64, 80 and 128 takes sm90, float32 there sm90_tf32; the
+    other head dims take tf32; each launches and matches the plain version."""
     for D in flash_attention.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = _qkv((1, 70, 2, D), (1, 70, 2, D), dt, D, cuda)
-            want = "sm90" if dt == torch.bfloat16 and D in flash_attention.SM90_HEAD_DIMS else "tf32"
+            want = _route(dt, D)
             assert flash_attention.route(q, k, v) == want
             before = flash_attention.route_launches()[want]
             got = flash_attention.flash_attention(q, k, v, causal=True)
@@ -412,7 +458,7 @@ def test_serve_engine_on_card(cuda):
     assert _build.launch_counts()["flash_attention"] == cfg.n_layers
     # the smoke config's head dim is 16: every call takes the tf32 kernel
     assert cfg.hd == 16
-    assert flash_attention.route_launches() == {"sm90": 0, "tf32": cfg.n_layers}
+    assert flash_attention.route_launches() == {"sm90": 0, "sm90_tf32": 0, "tf32": cfg.n_layers}
     for rid in ids:
         out = batcher.result(rid)
         assert out.shape == (5,) and ((0 <= out) & (out < cfg.vocab)).all()

@@ -1,12 +1,16 @@
 """The tensor-core rate that ``wgmma`` reaches on this card in each form the
-sm90 flash kernel issues: S = Q K^T as m64n64k16 and m64n128k16 with both
-operands in shared memory, O += P V as m64n64k16, m64n80k16 and m64n128k16
-with P in registers and V read through the transpose bit. Each warpgroup
-issues groups of 8 (Q K^T) or 4 (P V) instructions into one accumulator,
-waiting for each group (wait_group 0) or keeping one in flight (wait_group
-1); one or two warpgroups an SM, every SM busy, operands fixed in shared
-memory and registers (no memory traffic). The published dense bf16 rate of
-an H100 SXM is 989 TFLOP/s.
+two Hopper flash kernels issue. The sm90 kernel (bf16): S = Q K^T as
+m64n64k16 and m64n128k16 with both operands in shared memory, O += P V as
+m64n64k16, m64n80k16 and m64n128k16 with P in registers and V read through
+the transpose bit. The sm90_tf32 kernel (float32 on TF32 operands): S = Q K^T
+as m64n32k8, m64n64k8, m64n80k8 and m64n128k8 with both operands in shared
+memory, P V as m64n64k8, m64n80k8 and m64n128k8 with P in registers and V^T
+K-major in shared memory (TF32 has no transpose bit). Each warpgroup issues
+groups of 8 (Q K^T) or 4 (P V) instructions into one accumulator, waiting
+for each group (wait_group 0) or keeping one in flight (wait_group 1); one or
+two warpgroups an SM, every SM busy, operands fixed in shared memory and
+registers (no memory traffic). The published dense rates of an H100 SXM are
+989 TFLOP/s bf16 and 495 TF32.
 
     python tools/wgmma_peak.py
 
@@ -37,7 +41,8 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
     "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
 
 // FORM: 0 ss m64n64k16, 1 ss m64n128k16, 2 rs m64n64k16 tnspB, 3 rs m64n80k16 tnspB,
-// 4 rs m64n128k16 tnspB
+// 4 rs m64n128k16 tnspB (bf16); 5-8 ss m64n32k8, m64n64k8, m64n80k8, m64n128k8 and 9-11 rs
+// m64n64k8, m64n80k8, m64n128k8 (tf32, both operands K-major)
 template <int FORM>
 __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t da, uint64_t db) {
   if constexpr (FORM == 0) {
@@ -67,7 +72,7 @@ __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint
                  "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}"
                  : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-  } else {
+  }@TF32_FORMS@ else {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, "
                  "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
                  "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
@@ -79,9 +84,14 @@ __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint
   }
 }
 
-// the form's N, and its instructions a group (8 for Q.K^T, 4 for P.V)
-__host__ __device__ constexpr int n_of(int form) { return form == 1 || form == 4 ? 128 : form == 3 ? 80 : 64; }
-__host__ __device__ constexpr int group_of(int form) { return form < 2 ? 8 : 4; }
+// the form's N and K, and its instructions a group (8 for Q.K^T, 4 for P.V)
+__host__ __device__ constexpr int n_of(int form) {
+  return form < 5 ? (form == 1 || form == 4 ? 128 : form == 3 ? 80 : 64)
+                  : (form == 5 ? 32 : form == 6 || form == 9 ? 64 : form == 7 || form == 10 ? 80 : 128);
+}
+__host__ __device__ constexpr int k_of(int form) { return form < 5 ? 16 : 8; }
+__host__ __device__ constexpr bool ss(int form) { return form < 2 || (form >= 5 && form <= 8); }
+__host__ __device__ constexpr int group_of(int form) { return ss(form) ? 8 : 4; }
 constexpr int kSmem = 64 * 1024;
 
 template <int FORM, int INFLIGHT>
@@ -95,8 +105,8 @@ __global__ void __launch_bounds__(256, 1) bench(float* out, int iters) {
 #pragma unroll
     for (int g = 0; g < group_of(FORM); ++g) {
       const uint64_t da = desc(base + (g % 4) * 32, 16, 1024);
-      const uint64_t db = FORM < 2 ? desc(base + 16384 + (g % 4) * 32, 16, 1024)
-                                   : desc(base + 16384 + g * 2048, 8192, 1024);
+      const uint64_t db = FORM < 2 || FORM >= 5 ? desc(base + 16384 + (g % 4) * 32, 16, 1024)
+                                                : desc(base + 16384 + g * 2048, 8192, 1024);
       mma<FORM>(d, a, da, db);
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
@@ -131,7 +141,7 @@ double tflops(int sms, int warpgroups) {
   cudaEventElapsedTime(&ms, s, e);
   cudaFree(out);
   if (cudaGetLastError() != cudaSuccess) return -1.0;
-  return 2.0 * 64 * n_of(FORM) * 16 * group_of(FORM) * double(iters) * warpgroups * sms / (ms * 1e-3) / 1e12;
+  return 2.0 * 64 * n_of(FORM) * k_of(FORM) * group_of(FORM) * double(iters) * warpgroups * sms / (ms * 1e-3) / 1e12;
 }
 
 template <int FORM>
@@ -148,9 +158,36 @@ int main() {
   row<2>("rs m64n64k16 tnspB (P.V, D 64)", sms);
   row<3>("rs m64n80k16 tnspB (P.V, D 80)", sms);
   row<4>("rs m64n128k16 tnspB (P.V, D 128)", sms);
+  row<5>("tf32 ss m64n32k8 (Q.K^T, 32 keys)", sms);
+  row<6>("tf32 ss m64n64k8 (Q.K^T, 64 keys)", sms);
+  row<7>("tf32 ss m64n80k8", sms);
+  row<8>("tf32 ss m64n128k8", sms);
+  row<9>("tf32 rs m64n64k8 (P.V, D 64)", sms);
+  row<10>("tf32 rs m64n80k8 (P.V, D 80)", sms);
+  row<11>("tf32 rs m64n128k8 (P.V, D 128)", sms);
   return 0;
 }
 """
+
+
+def _tf32_forms() -> str:
+    """The source of the TF32 forms' branches of mma<FORM> (5-11)."""
+    out = []
+    for form, (kind, n) in enumerate([("ss", 32), ("ss", 64), ("ss", 80), ("ss", 128),
+                                      ("rs", 64), ("rs", 80), ("rs", 128)], start=5):
+        acc = ", ".join(f"%{i}" for i in range(n // 2))
+        accs = ", ".join(f"ACC8(d, {o})" for o in range(0, n // 2, 8))
+        if kind == "ss":
+            ops, ins = f"%{n // 2}, %{n // 2 + 1}", '"l"(da), "l"(db)'
+        else:
+            a = ", ".join(f"%{n // 2 + i}" for i in range(4))
+            ops = f"{{{a}}}, %{n // 2 + 4}"
+            ins = '"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db)'
+        out.append(f' else if constexpr (FORM == {form}) {{\n'
+                   f'    asm volatile("{{\\n.reg .pred p;\\nsetp.ne.b32 p, 1, 0;\\n'
+                   f'wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 {{{acc}}}, {ops}, p, 1, 1;'
+                   f'\\n}}" : {accs} : {ins});\n  }}')
+    return "".join(out)
 
 
 def _nvcc() -> str:
@@ -165,7 +202,7 @@ def main() -> int:
     out = Path(__file__).resolve().parents[1] / "build" / "tools"
     out.mkdir(parents=True, exist_ok=True)
     src, exe = out / "wgmma_peak.cu", out / "wgmma_peak"
-    src.write_text(SOURCE)
+    src.write_text(SOURCE.replace("@TF32_FORMS@", _tf32_forms()))
     subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-o",
                     str(exe), str(src)], check=True)
     subprocess.run([str(exe)], check=True)
