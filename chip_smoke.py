@@ -11,10 +11,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``flash_attention_tf32.cu`` with nvcc (with ``-Xptxas -v``), one process
    per source, in parallel; print each flash kernel's registers and spills
    and the count of its tensor-core instructions in its SASS (``cuobjdump
-   -sass``): ``HGMMA`` (wgmma), which every sm90 and sm90_tf32 instance (D 64,
-   80, 128) must hold with no spilled byte and no wgmma that ptxas
-   serialised, and ``HMMA`` (mma.sync), which every tf32 instance (each head
-   dim in float32 and bf16) must hold;
+   -sass``): ``HGMMA`` (wgmma), which every sm90 instance (D 64, 80, 128,
+   256) and sm90_tf32 instance (D 64, 80, 128) must hold with no spilled
+   byte and no wgmma that ptxas serialised, and ``HMMA`` (mma.sync), which
+   every tf32 instance (each head dim in float32 and bf16) must hold;
 3. kernels: each of the six storage kernels against its plain PyTorch version
    on the card, byte for byte (bit counts exactly), at word widths 1/2/4/8 and
    awkward lengths (the word XOR also on operands off a 16-byte boundary and at
@@ -27,8 +27,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    decoder layers to 1 (full-vocabulary embedding and lm_head kept) — a base
    (ZipNN lane), a fine-tune declaring its base (BitX lane), a fine-tune
    matched by bit distance and an exact re-upload (file dedup) — and
-   retrieves every file, sha256-checked against its source; the kernel launch
-   counts of this run show that the path went through all four kernels;
+   retrieves every file (all four at once, a thread each), sha256-checked
+   against its source; the kernel launch counts of this run show that the
+   path went through all four kernels;
 4b. bit distance, on the files phase 4 wrote: the full-scan bit distance
    (paper Eq. 1) of each fine-tune to the base, every tensor loaded to the
    card and counted by the hamming kernel, equal to the numpy host path tensor
@@ -198,23 +199,35 @@ Phase 3 also holds the flash-attention kernels (routes ``sm90``, ``sm90_tf32`` a
 against their plain version (``ref.mha_reference``) at the reference tests'
 cases, ragged lengths, every head dim (80 included), Sq != Sk, bidirectional
 and windowed masks, fully masked rows, the edges of the sm90 kernel's 64-key
-tiles, strided (fused-projection) and misaligned operands (float32 and bf16
-slices 2-8 bytes off a 16-byte boundary) and heads broadcast with stride 0,
-asserting the route of each call (bf16 at D 64, 80 and 128 with
-TMA-addressable operands takes ``sm90``, float32 at those head dims with such
-operands ``sm90_tf32``, every other call ``tf32``). It times
+tiles and 128-row blocks (at D 256 too), strided (fused-projection) and
+misaligned operands (float32 and bf16 slices 2-8 bytes off a 16-byte
+boundary) and heads broadcast with stride 0, asserting the route of each call
+(bf16 at D 64, 80, 128 and 256 with TMA-addressable operands takes ``sm90``,
+float32 at D 64, 80 and 128 with such operands ``sm90_tf32``, every other
+call ``tf32``). It times
 each ``sm90`` instance at its path's shape: D 128 at the shapes phase 7's
 prefills give the kernel (B 4, S 2032 and 512, H 28, causal), D 80 at zamba2-2.7b's (4, 1024, 32, causal), D 64 at whisper-medium's
 encoder (4, 1500, 16, bidirectional); D 128 also at a 32k-token prompt (B 1,
 S 32768, H 28, causal), its rows 0-2047 held to the plain version on the
-first 2048 keys (exact by causality) and every row to SDPA's output; ``tf32``
-in bf16 at D 256 (B 4, S 2048, H 16, causal); on float32 inputs, at phase
-7's, zamba2-2.7b's and whisper-medium's encoder shapes, ``sm90_tf32`` and
-``tf32`` each launched directly, in turns; each beside its bound (float32 at
-the TF32 rate, with the three passes' ceiling), the plain version
+first 2048 keys (exact by causality) and every row to SDPA's output; in bf16
+at D 256 (B 4, S 2048, H 16, causal) ``sm90`` and ``tf32``, and on float32
+inputs, at phase 7's, zamba2-2.7b's and whisper-medium's encoder shapes,
+``sm90_tf32`` and ``tf32``, each launched directly, in turns; ``tf32`` alone
+at B 4, S 2048, H 16, causal in float32 at D 256 and in both dtypes at D 16
+and 32; each beside its bound (float32 at the TF32 rate, with the three
+passes' ceiling where wgmma is paired with it), the plain version
 and ``torch.nn.functional.scaled_dot_product_attention`` (on float32 inputs
 with TF32 off, the backend it dispatched to named), with the wrapper's host
 time per call.
+
+Phases 1-8 run in this process, in order. Phases 9-12 run in a child process
+(``python3 chip_smoke.py --phases-9-12 ...``, its own launch counts), started
+after phase 3 and run beside phases 4-8 on the same card: phases 4-8 are
+mostly host work, and one after the other the twelve phases took 1165-1286 s
+of the 1200 s limit on slow hosts. The child's output follows phase 8's;
+its results come back pickled; it is stopped, with its own children, if
+this process fails or dies. So the device times of phases 7-12 and phase
+8's card-memory rise share the card with the other process.
 
 The last lines are the lifecycle line, the hub server's line, the families
 line, the train line, the mesh line, the mesh families line, the card's name
@@ -235,6 +248,7 @@ import dataclasses  # noqa: E402
 import hashlib  # noqa: E402
 import http.client  # noqa: E402
 import json  # noqa: E402
+import pickle  # noqa: E402
 import queue  # noqa: E402
 import re  # noqa: E402
 import shutil  # noqa: E402
@@ -538,6 +552,14 @@ FLASH_CASES = [
     (2, 64, 64, 3, 128, True, 0), (1, 192, 40, 2, 64, False, 8),
     # and of the 128-key tiles of D 64
     (1, 150, 128, 2, 64, False, 0), (1, 255, 255, 2, 64, True, 0), (1, 150, 257, 2, 64, False, 0),
+    # head dim 256 (sm90 in bf16, tf32 in float32): ragged over three 128-row
+    # blocks, Sk one short of and one past the sm90 kernel's 80-key tile and
+    # one past two, Sq one past a block, Sq != Sk both ways, windows of 63 and
+    # 81 over ragged tiles, rows from 47 on fully masked
+    (2, 333, 333, 3, 256, True, 0), (1, 100, 79, 2, 256, False, 0), (1, 100, 81, 2, 256, False, 0),
+    (1, 170, 161, 2, 256, False, 0), (1, 129, 129, 2, 256, True, 0), (1, 300, 170, 2, 256, True, 0),
+    (1, 170, 300, 2, 256, False, 0), (1, 260, 260, 2, 256, True, 63), (1, 200, 200, 2, 256, True, 81),
+    (1, 192, 40, 2, 256, False, 8),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_flash_kernel.py:33
 # (B, S) of the timed shapes, all bf16 causal at Qwen2-7B's 28 query heads of
@@ -553,8 +575,13 @@ FLASH_H, FLASH_D = 28, 128
 # whisper-medium's encoder (phase 9a). The first is the kernels line's.
 FLASH_TIMED_F32 = {"phase 7": (4, 2032, 28, 128, True), "zamba2": (4, 1024, 32, 80, True),
                    "whisper encoder": (4, 1500, 16, 64, False)}
-# bf16 at head dim 256 (the tf32 route's one pass)
+# bf16 at head dim 256: sm90 and the tf32 route's one pass, in turns
 FLASH_TIMED_D256 = (4, 2048, 16, 256, True)
+# the tf32 route's instances that no path and no timing above takes, each at
+# B 4, S 2048, H 16, causal: (dtype, head dim)
+FLASH_TIMED_TF32 = ((torch.float32, 256), (torch.float32, 16), (torch.bfloat16, 16),
+                    (torch.float32, 32), (torch.bfloat16, 32))
+FLASH_TIMED_TF32_SHAPE = (4, 2048, 16, True)  # B, S, H, causal
 # the other sm90 instances at their paths' shapes (B, S, H, D, causal):
 # zamba2-2.7b's shared attention (phase 9b) and whisper-medium's encoder (9a)
 FLASH_TIMED_SM90 = {80: (4, 1024, 32, 80, True), 64: (4, 1500, 16, 64, False)}
@@ -638,47 +665,54 @@ def sdpa_backend(q, k, v, causal: bool) -> str:
     raise AssertionError("no backend of scaled_dot_product_attention runs these inputs")
 
 
-def time_flash_f32(label: str, B: int, S: int, H: int, D: int, causal: bool,
-                   gen: torch.Generator) -> dict:
-    """The two float32 kernels at a float32 shape, each launched directly (so
+def time_flash_pair(label: str, B: int, S: int, H: int, D: int, causal: bool,
+                    gen: torch.Generator, dtype=torch.float32) -> dict:
+    """The wgmma kernel of the dtype (sm90_tf32 for float32, sm90 for bf16)
+    and the tf32 kernel (mma.sync) at one shape, each launched directly (so
     the one the route does not pick is timed too) and held to the plain
-    version: sm90_tf32 (wgmma) and tf32 (mma.sync), in turns, beside the
-    plain version and SDPA on the same float32 inputs (TF32 off), the bound
-    at the TF32 rate and the three passes' ceiling."""
-    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE) for _ in range(3))
+    version, in turns, beside the plain version and SDPA on the same inputs
+    (float32 with TF32 off), the bound at the dtype's tensor-core rate and,
+    in float32, the three passes' ceiling."""
+    f32 = dtype == torch.float32
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(dtype) for _ in range(3))
+    wgmma = fa._WGMMA_ROUTE[dtype]
     calls = {route: (lambda route=route: fa._launch(route, q, k, v, causal, 0))
-             for route in ("sm90_tf32", "tf32")}
-    r = {"shape": [B, S, H, D], "causal": causal, "dtype": "float32",
-         "route": flash_route(torch.float32, D)}
+             for route in (wgmma, "tf32")}
+    r = {"shape": [B, S, H, D], "causal": causal, "dtype": str(dtype).split(".")[-1],
+         "route": flash_route(dtype, D)}
     for route, fn in calls.items():
         r[route] = {"max_abs_err": held_to_plain(fn(), q, k, v, causal), "ms": []}
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, S, D), same storage
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=causal)
     r["library_backend"] = sdpa_backend(qt, kt, vt, causal)
-    for route in ("sm90_tf32", "tf32", "tf32", "sm90_tf32"):  # in turns
+    for route in (wgmma, "tf32", "tf32", wgmma):  # in turns
         r[route]["ms"].append(cuda_ms(calls[route]))
     for route, fn in calls.items():
         r[route]["ms"] = min(r[route]["ms"])
         r[route]["host_us"] = host_us(fn)
     r["plain_ms"] = cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal), iters=3)
     r["library_ms"] = cuda_ms(sdpa)
-    r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal, torch.float32)
-    r["passes_bound_ms"], _ = flash_bound(B, S, H, D, causal, torch.float32, passes=3)
+    r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal, dtype)
+    if f32:
+        r["passes_bound_ms"], _ = flash_bound(B, S, H, D, causal, torch.float32, passes=3)
     mode = "causal" if causal else "bidirectional"
     for route in calls:
         t = r[route]
+        ceiling = (f"; three passes' ceiling {r['passes_bound_ms']:.4f} ms, "
+                   f"{r['passes_bound_ms'] / t['ms']:.1%} of it" if f32 else "")
         log(f"kernel {FLASH[route]['name']} ({route}{', routed' if route == r['route'] else ''}): "
-            f"{t['ms']:.4f} ms at {label} B={B} S={S} H={H} D={D} float32 {mode} (bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']} at 495 TFLOP/s TF32, "
-            f"{r['bound_ms'] / t['ms']:.1%} of it; three passes' ceiling "
-            f"{r['passes_bound_ms']:.4f} ms, {r['passes_bound_ms'] / t['ms']:.1%} of it); host "
+            f"{t['ms']:.4f} ms at {label} B={B} S={S} H={H} D={D} {r['dtype']} {mode} (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} at "
+            f"{'495 TFLOP/s TF32' if f32 else '989 TFLOP/s bf16'}, "
+            f"{r['bound_ms'] / t['ms']:.1%} of it{ceiling}); host "
             f"{t['host_us']:.1f} us per call; plain version {r['plain_ms']:.4f} ms; library: "
-            f"{FLASH_LIBRARY} float32 ({r['library_backend']}, allow_tf32 off) "
+            f"{FLASH_LIBRARY} {r['dtype']} ({r['library_backend']}"
+            f"{', allow_tf32 off' if f32 else ''}) "
             f"{r['library_ms']:.4f} ms ({r['library_ms'] / t['ms']:.2f}x the kernel's speed); "
-            f"max_abs_err {t['max_abs_err']:.3e} (tolerance 2e-5)")
-    log(f"kernel flash_attention at {label} float32: sm90_tf32 {r['sm90_tf32']['ms']:.4f} ms, "
-        f"tf32 {r['tf32']['ms']:.4f} ms ({r['tf32']['ms'] / r['sm90_tf32']['ms']:.2f}x); the route "
+            f"max_abs_err {t['max_abs_err']:.3e} (tolerance {'2e-5' if f32 else '2e-2'})")
+    log(f"kernel flash_attention at {label} {r['dtype']}: {wgmma} {r[wgmma]['ms']:.4f} ms, "
+        f"tf32 {r['tf32']['ms']:.4f} ms ({r['tf32']['ms'] / r[wgmma]['ms']:.2f}x); the route "
         f"takes {r['route']}")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -725,9 +759,10 @@ def time_flash_long(gen: torch.Generator) -> dict:
 def phase_flash(gen: torch.Generator) -> dict:
     """The flash kernels against their plain version; their times at the
     serving path's shapes. Returns sm90's report entry (phase 7's bf16 S 2032
-    shape) and, under "sm90_80", "sm90_64", "sm90_long", "f32" and "d256",
-    the other sm90 instances, the 32k row, the float32 timings of sm90_tf32
-    and tf32 and the D 256 timing."""
+    shape) and, under "sm90_80", "sm90_64", "sm90_long", "f32", "d256" and
+    "tf32_only", the other sm90 instances, the 32k row, the float32 timings
+    of sm90_tf32 and tf32, the bf16 D 256 timing of sm90 and tf32, and the
+    tf32 instances timed alone."""
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     bf16 = torch.bfloat16
     fa.reset_route_launches()
@@ -740,7 +775,9 @@ def phase_flash(gen: torch.Generator) -> dict:
             key = (str(dt).split(".")[-1], flash_route(dt, D))
             worst[key] = max(worst.get(key, 0.0),
                              flash_checked(q, k, v, causal, window, route=key[1])[1])
-    for D in fa.SM90_HEAD_DIMS:
+    if flash_route(bf16, 256) != "sm90" or worst.get(("bfloat16", "sm90")) is None:
+        raise AssertionError("bf16 at D 256 does not take the sm90 route")
+    for D in fa.WGMMA_HEAD_DIMS[bf16]:
         # slices of one fused (B, S, 3H, D) projection, read in place by TMA;
         # a slice 2 bytes off a 16-byte boundary, which no tensor map addresses
         qkv = torch.randn((2, 130, 12, D), generator=gen, device=DEVICE).to(bf16)
@@ -750,7 +787,7 @@ def phase_flash(gen: torch.Generator) -> dict:
         q = buf[..., 1:1 + D]
         err = flash_checked(q, qkv[:, :, 4:8], qkv[:, :, 8:], True, route="tf32")[1]
         worst[("bfloat16", "tf32")] = max(worst[("bfloat16", "tf32")], err)
-    for D in fa.SM90_HEAD_DIMS:
+    for D in fa.WGMMA_HEAD_DIMS[torch.float32]:
         # float32 slices of one fused projection, read in place by TMA
         qkv = torch.randn((2, 130, 12, D), generator=gen, device=DEVICE)
         err = flash_checked(qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:], True, route="sm90_tf32")[1]
@@ -805,31 +842,20 @@ def phase_flash(gen: torch.Generator) -> dict:
         reports[f"sm90_{D_}"] = _time_flash(*shape, "sm90", gen)
     reports["sm90_long"] = time_flash_long(gen)
 
-    # bf16 at D 256: the tf32 route's one pass
-    B, S, H256, D256, causal = FLASH_TIMED_D256
-    q, k, v = (torch.randn((B, S, H256, D256), generator=gen, device=DEVICE).to(bf16)
-               for _ in range(3))
-    tf32 = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    d256 = {"shape": [B, S, H256, D256], "dtype": "bfloat16",
-            "max_abs_err": flash_checked(q, k, v, causal, route="tf32")[1],
-            "ms": cuda_ms(tf32), "host_us": host_us(tf32),
-            "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal), iters=3),
-            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))}
-    d256["bound_ms"], d256["bound_by"] = flash_bound(B, S, H256, D256, causal)
-    log(f"kernel flash_attention_tf32 (tf32): {d256['ms']:.4f} ms at B={B} S={S} H={H256} "
-        f"D={D256} bf16 causal, one pass (bound {d256['bound_ms']:.4f} ms by {d256['bound_by']} at "
-        f"989 TFLOP/s bf16, {d256['bound_ms'] / d256['ms']:.1%} of it); plain version "
-        f"{d256['plain_ms']:.4f} ms; library: {FLASH_LIBRARY} "
-        f"{d256['library_ms']:.4f} ms; max_abs_err {d256['max_abs_err']:.3e} (tolerance 2e-2)")
-    del q, k, v, qt, kt, vt
-
+    # bf16 at D 256: sm90 and the tf32 route's one pass, in turns
+    d256 = time_flash_pair("D 256", *FLASH_TIMED_D256, gen, dtype=bf16)
+    if d256["route"] != "sm90":
+        raise AssertionError(f"bf16 at D 256 takes route {d256['route']}")
     # float32 at the families' shapes: sm90_tf32 and tf32 beside the plain
     # version and SDPA
-    f32 = {label: time_flash_f32(label, *shape, gen)
+    f32 = {label: time_flash_pair(label, *shape, gen)
            for label, shape in FLASH_TIMED_F32.items()}
     reports["f32"], reports["d256"] = f32, d256
+    if any(flash_route(dt, D) != "tf32" for dt, D in FLASH_TIMED_TF32):
+        raise AssertionError(f"a call of {FLASH_TIMED_TF32} leaves the tf32 route")
+    B, S, H, causal = FLASH_TIMED_TF32_SHAPE
+    reports["tf32_only"] = {tf32_instance(dt, D): _time_flash(B, S, H, D, causal, "tf32", gen, dt)
+                            for dt, D in FLASH_TIMED_TF32}
     torch.cuda.empty_cache()
     return reports
 
@@ -913,8 +939,9 @@ def flash_build_report() -> dict:
         mma = ("not available (no cuobjdump)" if r["hgmma"] is None else
                f"HGMMA {r['hgmma']}, HMMA {r['hmma']}")
         log(f"build: {name}: {regs}; tensor-core instructions in its SASS: {mma}")
-    wgmma_instances = ([f"flash_fwd_sm90_kernel<{D}>" for D in fa.SM90_HEAD_DIMS]
-                       + [f"flash_fwd_sm90_tf32_kernel<{D}>" for D in fa.SM90_HEAD_DIMS])
+    wgmma_instances = ([f"flash_fwd_sm90_kernel<{D}>" for D in fa.WGMMA_HEAD_DIMS[torch.bfloat16]]
+                       + [f"flash_fwd_sm90_tf32_kernel<{D}>"
+                          for D in fa.WGMMA_HEAD_DIMS[torch.float32]])
     for name in wgmma_instances:
         r = info.get(name, blank)
         if r["registers"] is not None and (r["spill_stores"] or r["spill_loads"]
@@ -988,10 +1015,18 @@ def phase_store(tmp: str, seed: int) -> dict:
         t_ingest = time.perf_counter() - t0
         c_ingest = backend.counters()
         t0 = time.perf_counter()
-        for rid in uploads:
+
+        def retrieve(rid):
             got = hashlib.sha256(store.retrieve_file(rid, "model.safetensors")).hexdigest()
             if got != want_sha[rid]:
                 raise AssertionError(f"retrieved {rid} has sha256 {got}, source {want_sha[rid]}")
+
+        # every file at once, a thread each, as a hub's readers fetch them: a
+        # file's largest tensors decode on one thread each, so one file at a
+        # time leaves most of the store's workers idle (the whole smoke ran
+        # 1211-1286 s on slow hosts with the files one after another)
+        with concurrent.futures.ThreadPoolExecutor(len(uploads)) as pool:
+            list(pool.map(retrieve, uploads))
         t_retrieve = time.perf_counter() - t0
         launches = _build.launch_counts()
         c_all = backend.counters()
@@ -1017,7 +1052,8 @@ def phase_store(tmp: str, seed: int) -> dict:
     if any(launches[k] == 0 for k in TorchBackend.KERNELS):
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
     c_ret = {k: c_all[k] - c_ingest[k] for k in ("kernel_ms", "copy_ms", "h2d_bytes", "d2h_bytes")}
-    for label, wall, c in (("ingest", t_ingest, c_ingest), ("retrieve", t_retrieve, c_ret)):
+    for label, wall, c in (("ingest", t_ingest, c_ingest),
+                           ("retrieve (the four files at once)", t_retrieve, c_ret)):
         rest = wall * 1e3 - c["kernel_ms"] - c["copy_ms"]
         log(f"store {label}: {raw / wall / 1e6:.1f} MB/s ({raw / 1e9:.3f} GB in {wall:.2f} s); "
             f"kernels {c['kernel_ms']:.1f} ms, host<->device copies {c['copy_ms']:.1f} ms, "
@@ -1503,7 +1539,7 @@ def _serve(engine: ServeEngine, prompts) -> tuple:
 
 
 def phase_serve(tmp: str, seed: int) -> tuple:
-    """Cold-start a 2-layer Qwen2-7B-width fine-tune from the store and serve
+    """Cold-start a 1-layer Qwen2-7B-width fine-tune from the store and serve
     8 requests; returns the flash launches of the serving run, the kernel's
     largest difference from its plain version on the inputs the run gave it,
     and the float32 model's flash prefills (:func:`float32_flash`)."""
@@ -1902,7 +1938,7 @@ def phase_hub(tmp: str, seed: int, smi: str) -> dict:
     """Serve phase 7's store from ``python -m repro_torch.serve.store_server``
     in a process of its own: ranged tensor GETs (BitX and ZipNN lanes,
     concurrent over distinct tensors and single-flighted over one), a PUT of a
-    second 2-layer Qwen2-7B-width fine-tune and a whole-file GET of it, every
+    second 1-layer Qwen2-7B-width fine-tune and a whole-file GET of it, every
     byte held against its source. Returns the server's counts."""
     cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=SERVE_LAYERS)
     base_id, ft_id = SERVE_REPOS
@@ -2086,7 +2122,8 @@ def phase_hub(tmp: str, seed: int, smi: str) -> dict:
     log(f"hub: server kernel launches {c['kernel_calls']}, H2D {c['h2d_bytes']} B, D2H "
         f"{c['d2h_bytes']} B on {c['device']}; card: {smi}")
     log(f"hub: server device memory: nvidia-smi by pid: {smi_mem}; the card's memory in use rose "
-        f"{used_delta} MiB from before the server started to its last request; peak PyTorch "
+        f"{used_delta} MiB from before the server started to its last request (phases 9-12 run "
+        f"beside it in another process, so this counts theirs too); peak PyTorch "
         f"allocation {c['peak_allocated_bytes'] / 2**30:.2f} GiB; exited {rc} on SIGINT; kernel library "
         f"loaded from phase 2's build, not rebuilt; card: {smi}")
     return out
@@ -2319,28 +2356,30 @@ def _family_serve(name: str, cfg, engine: ServeEngine, prompts, n_new: int, extr
 
 
 def _time_flash(B: int, S: int, H: int, D: int, causal: bool, route: str,
-                gen: torch.Generator) -> dict:
+                gen: torch.Generator, dtype=torch.bfloat16) -> dict:
     """One flash shape timed on ``route`` beside its bound, its plain version
-    and scaled_dot_product_attention. The route's kernel is launched directly,
-    as phase 3 does, so a route the wrapper does not pick at this shape is
-    timed too."""
-    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    and scaled_dot_product_attention (its backend named; float32 with TF32
+    off, as phase 3 sets it). The route's kernel is launched directly, as
+    phase 3 does, so a route the wrapper does not pick at this shape is timed
+    too."""
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(dtype)
                for _ in range(3))
     fn = lambda: fa._launch(route, q, k, v, causal, 0)  # noqa: E731
     err = held_to_plain(fn(), q, k, v, causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    r = {"shape": [B, S, H, D], "causal": causal, "route": route, "max_abs_err": err,
-         "ms": cuda_ms(fn), "host_us": host_us(fn),
+    r = {"shape": [B, S, H, D], "causal": causal, "dtype": str(dtype).split(".")[-1],
+         "route": route, "max_abs_err": err, "ms": cuda_ms(fn), "host_us": host_us(fn),
          "plain_ms": cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal), iters=3),
+         "library_backend": sdpa_backend(qt, kt, vt, causal),
          "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
              qt, kt, vt, is_causal=causal))}
-    r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal)
+    r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal, dtype)
     log(f"kernel {FLASH[route]['name']} ({route}): {r['ms']:.4f} ms at B={B} S={S} H={H} D={D} "
-        f"bf16 {'causal' if causal else 'bidirectional'} (bound {r['bound_ms']:.4f} ms by "
+        f"{r['dtype']} {'causal' if causal else 'bidirectional'} (bound {r['bound_ms']:.4f} ms by "
         f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it); host {r['host_us']:.1f} us per "
         f"call; plain version {r['plain_ms']:.4f} ms; library: {FLASH_LIBRARY} "
-        f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.2f}x the kernel's speed); "
-        f"max_abs_err {err:.3e} (tolerance 2e-2)")
+        f"({r['library_backend']}) {r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.2f}x the "
+        f"kernel's speed); max_abs_err {err:.3e} (tolerance {'2e-5' if dtype == torch.float32 else '2e-2'})")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return r
@@ -3355,6 +3394,116 @@ def phase_mesh_families(tmp: str, seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 9-12 in a child process, beside phases 4-8
+# ---------------------------------------------------------------------------
+
+# Phases 4-8 spend most of their time on the host (hashing, entropy coding
+# and I/O of the store, each big tensor on one worker), so the card and most
+# of the host's cores sit idle; run one after the other, the twelve phases
+# ran 1165-1286 s, past the 1200 s limit on slow hosts. Phases 9-12 share no
+# state with them, so a child process runs them meanwhile, on the same card,
+# with its own launch counts (each phase still resets and reads its own).
+LATER_FLAG = "--phases-9-12"
+LATER_STOP_S = 30  # the child's grace to end its own children after SIGTERM
+
+
+def _exit_on_sigterm(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+def later_phases_main(result_path: str, parent_pid: str, smi: str) -> int:
+    """Phases 9-12 (11b's dry runs beside 9 and 10), run by the child process
+    that :class:`LaterPhases` starts; their results are pickled to
+    ``result_path``. SIGTERM, sent by the parent on its way out or by the
+    kernel when the parent dies, ends the dry runs and the CLI runs first."""
+    import ctypes
+
+    signal.signal(signal.SIGTERM, _exit_on_sigterm)
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG
+    if os.getppid() != int(parent_pid):
+        return 1  # the parent ended before the signal was armed
+    _build.library()  # phase 2's build, loaded, not rebuilt
+    dryruns = start_dryruns()
+    try:
+        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-families-")
+        try:
+            families = phase_families(tmp, SEED, smi)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-train-")
+        try:
+            train = phase_train(tmp, SEED, smi)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-mesh-")
+        try:
+            mesh = phase_mesh(tmp, SEED, smi, dryruns)
+            mesh_families = phase_mesh_families(tmp, SEED, smi)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        stop_dryruns(dryruns)
+    with open(result_path + ".part", "wb") as f:
+        pickle.dump((families, train, mesh, mesh_families), f)
+    os.replace(result_path + ".part", result_path)
+    return 0
+
+
+class LaterPhases:
+    """The child process of phases 9-12: ``python3 chip_smoke.py
+    --phases-9-12``, started after phase 3 so that phase 3's timings have the
+    card to themselves. Its output goes to files that :meth:`stop` copies to
+    this process's stdout and stderr, so its lines follow phase 8's whole."""
+
+    def __init__(self, smi: str):
+        self.dir = tempfile.mkdtemp(prefix="zllm-chip-smoke-later-")
+        self.result = os.path.join(self.dir, "result.pickle")
+        self.out = open(os.path.join(self.dir, "stdout"), "w+")
+        self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), LATER_FLAG, self.result,
+             str(os.getpid()), smi],
+            stdout=self.out, stderr=self.err, cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def check(self) -> None:
+        """Raise at once if the child has already failed."""
+        rc = self.proc.poll()
+        if rc not in (None, 0):
+            raise AssertionError(f"phases 9-12 (the child process) exited {rc}")
+
+    def wait(self) -> tuple:
+        """Wait for the child; its four phases' results, or raise."""
+        rc = self.proc.wait()
+        self._echo()
+        if rc != 0:
+            raise AssertionError(f"phases 9-12 (the child process) exited {rc}")
+        with open(self.result, "rb") as f:
+            return pickle.load(f)
+
+    def _echo(self) -> None:
+        for src, dst in ((self.out, sys.stdout), (self.err, sys.stderr)):
+            if not src.closed:
+                src.flush()
+                src.seek(0)
+                shutil.copyfileobj(src, dst)
+                dst.flush()
+                src.close()
+
+    def stop(self) -> None:
+        """End the child if it still runs (SIGTERM, then SIGKILL), copy out
+        what it printed, and remove its files."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(LATER_STOP_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._echo()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -3379,50 +3528,39 @@ def main() -> int:
     report = phase_kernels(gen)
     flash_reports = phase_flash(gen)
     log(f"kernels: phase 3 took {time.perf_counter() - t3:.1f} s")
-    t4 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-")
+    later = LaterPhases(smi)  # phases 9-12, in a child process, beside phases 4-8
     try:
-        launches = phase_store(tmp, SEED)
-        launches["hamming"] = phase_bitdistance(tmp, SEED)
-        lifecycle = phase_lifecycle(tmp, SEED, smi)
-        shutil.rmtree(os.path.join(tmp, "hub"))
-        shutil.rmtree(os.path.join(tmp, "store"))
-        phase_identity(tmp, SEED)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    launches["hamming"] += phase_calibration()
-    log(f"store: phases 4-6 took {time.perf_counter() - t4:.1f} s")
-    tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-serve-")
-    try:
-        t7 = time.perf_counter()
-        launches["flash_attention"], path_err, serve32 = phase_serve(tmp, SEED)
-        log(f"serve: phase 7 took {time.perf_counter() - t7:.1f} s")
-        t8 = time.perf_counter()
-        hub = phase_hub(tmp, SEED, smi)
-        log(f"hub: phase 8 took {time.perf_counter() - t8:.1f} s")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    # 11b's dry runs hold the host's CPU only: they run beside phases 9 and 10
-    dryruns = start_dryruns()
-    try:
-        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-families-")
+        t4 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-")
         try:
-            families = phase_families(tmp, SEED, smi)
+            launches = phase_store(tmp, SEED)
+            launches["hamming"] = phase_bitdistance(tmp, SEED)
+            lifecycle = phase_lifecycle(tmp, SEED, smi)
+            shutil.rmtree(os.path.join(tmp, "hub"))
+            shutil.rmtree(os.path.join(tmp, "store"))
+            phase_identity(tmp, SEED)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-train-")
+        launches["hamming"] += phase_calibration()
+        log(f"store: phases 4-6 took {time.perf_counter() - t4:.1f} s")
+        later.check()
+        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-serve-")
         try:
-            train = phase_train(tmp, SEED, smi)
+            t7 = time.perf_counter()
+            launches["flash_attention"], path_err, serve32 = phase_serve(tmp, SEED)
+            log(f"serve: phase 7 took {time.perf_counter() - t7:.1f} s")
+            later.check()
+            t8 = time.perf_counter()
+            hub = phase_hub(tmp, SEED, smi)
+            log(f"hub: phase 8 took {time.perf_counter() - t8:.1f} s")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        tmp = tempfile.mkdtemp(prefix="zllm-chip-smoke-mesh-")
-        try:
-            mesh = phase_mesh(tmp, SEED, smi, dryruns)
-            mesh_families = phase_mesh_families(tmp, SEED, smi)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        t9 = time.perf_counter()
+        families, train, mesh, mesh_families = later.wait()
+        log(f"smoke: phases 4-8 took {t9 - t4:.1f} s; phases 9-12, in the child process "
+            f"beside them, ended {time.perf_counter() - t9:.1f} s after phase 8")
     finally:
-        stop_dryruns(dryruns)
+        later.stop()
     # no path of the JAX package calls xor_2d: its count is phase 3's
     launches["xor"] = report["xor"]["launches"]
     log(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -3434,8 +3572,9 @@ def main() -> int:
         by_phase[name] = {"4": launches[name], "4c": lifecycle["launches"][name],
                           "10": train["launches"][name]}
         launches[name] += lifecycle["launches"][name] + train["launches"][name]
-        launched_by[name] = ("phases 4 (store), 4c (the store's lifecycle) and 10a (training "
-                             "checkpoints and their restore)")
+        launched_by[name] = ("phases 4 (store; its four retrieves run at once, so its decode "
+                             "counts vary with the decodes they share), 4c (the store's "
+                             "lifecycle) and 10a (training checkpoints and their restore)")
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
         r = report[name]
@@ -3453,10 +3592,11 @@ def main() -> int:
     # (sm90: phase 7's S 2032 bf16 prefill, D 128; sm90_tf32 and tf32: the
     # same shape in float32, phase 7's float32 prefill), and per instance its
     # path's shape, launches and build report (sm90: D 128 phase 7, D 80 9b,
-    # D 64 9a, each timed in phase 3, and D 128 at a 32k-token prompt;
-    # sm90_tf32: float32 D 128 phase 7, D 80 9b, D 64 9a; tf32, which no path
-    # of the smoke takes: the same float32 shapes, each timed in phase 3
-    # beside sm90_tf32, bf16 D 80 at 9b's shape and bf16 D 256)
+    # D 64 9a, each timed in phase 3, D 256 timed only there, and D 128 at a
+    # 32k-token prompt; sm90_tf32: float32 D 128 phase 7, D 80 9b, D 64 9a;
+    # tf32, which no path of the smoke takes: the same float32 shapes, each
+    # timed in phase 3 beside sm90_tf32, bf16 D 80 at 9b's shape, bf16 D 256
+    # beside sm90, and float32 D 256 and both dtypes at D 16 and 32 alone)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     timed = families["timed"]
     mf = mesh_families["launches"]
@@ -3470,6 +3610,7 @@ def main() -> int:
                        + mf["whisper"]["sm90"],
                        "phases 9a and 12a (whisper-medium, unsharded and on a (1, 1) mesh)")}
     long = flash_reports["sm90_long"]
+    d256, tf32_only = flash_reports["d256"], flash_reports["tf32_only"]
     w32, z32 = (families[n]["float32_flash"] for n in ("whisper", "zamba2"))
     # the float32 prefills, each on sm90_tf32 (checked below): (phase 3's
     # timing at the path's shape, the path's run)
@@ -3480,9 +3621,9 @@ def main() -> int:
         raise AssertionError(f"a float32 prefill left sm90_tf32: {f32_paths}")
     rerouted = families["zamba2"]["prefill_by_route"]["rerouted_tf32_launches"]
 
-    def f32_numbers(r: dict, route: str) -> dict:  # one float32 kernel's numbers at a shape
+    def f32_numbers(r: dict, route: str) -> dict:  # one kernel's numbers at a paired shape
         return {**{k: r[k] for k in keys if k in r}, **r[route],
-                **{k: r[k] for k in ("passes_bound_ms", "library_backend")}}
+                **{k: r[k] for k in ("passes_bound_ms", "library_backend") if k in r}}
 
     worst = flash_reports["worst"]
     rows = {
@@ -3493,10 +3634,15 @@ def main() -> int:
                                 "11a (the prefill on a (1, 1) mesh, D 128) and 12a (whisper-medium "
                                 "and zamba2-2.7b on a (1, 1) mesh)",
                  "instance": "flash_fwd_sm90_kernel<128>",
-                 "instances": {f"flash_fwd_sm90_kernel<{D}>": {
-                     **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
-                     **build_info.get(f"flash_fwd_sm90_kernel<{D}>", {})}
-                     for D, (r, n, by) in sm90_paths.items()},
+                 "instances": {
+                     **{f"flash_fwd_sm90_kernel<{D}>": {
+                         **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
+                         **build_info.get(f"flash_fwd_sm90_kernel<{D}>", {})}
+                        for D, (r, n, by) in sm90_paths.items()},
+                     "flash_fwd_sm90_kernel<256>": {
+                         **f32_numbers(d256, "sm90"), "launches": 0,
+                         "launched_by": "phase 3 only: no path gives bf16 at D 256",
+                         **build_info.get("flash_fwd_sm90_kernel<256>", {})}},
                  "long_prompt": {**{k: long[k] for k in keys if k != "plain_ms"},
                                  "plain_ms": None, "launches": 0,
                                  "launched_by": "phase 3 only (the dry run's prefill_32k length)",
@@ -3505,6 +3651,7 @@ def main() -> int:
                  "err": max(flash_reports["sm90"]["max_abs_err"], path_err,
                             flash_reports["sm90_80"]["max_abs_err"],
                             flash_reports["sm90_64"]["max_abs_err"], long["max_abs_err"],
+                            d256["sm90"]["max_abs_err"],
                             families["whisper"]["flash_err"], families["zamba2"]["flash_err"],
                             *(r["flash_err"] for r in mesh_families["serve"].values()))},
         "sm90_tf32": {"main": f32_numbers(f32["phase 7"], "sm90_tf32"),
@@ -3523,8 +3670,8 @@ def main() -> int:
         "tf32": {"main": f32_numbers(f32["phase 7"], "tf32"),
                  "launches": 0,
                  "launched_by": "phase 3 only: no path of the smoke routes a call to it (it takes "
-                                "float32 and bf16 at D 16, 32 and 256 and operands TMA cannot "
-                                "address)",
+                                "float32 at D 256, both dtypes at D 16 and 32 and operands TMA "
+                                "cannot address)",
                  "rerouted_launches": rerouted,
                  "rerouted_by": "phase 9b's warm prefills with zamba2-2.7b's bf16 flash calls "
                                 "sent to it, in turns with sm90, off the path",
@@ -3542,13 +3689,19 @@ def main() -> int:
                          "rerouted_launches": rerouted,
                          **build_info.get(tf32_instance(torch.bfloat16, 80), {})},
                      tf32_instance(torch.bfloat16, 256): {
-                         **{k: flash_reports["d256"][k] for k in keys}, "launches": 0,
-                         "launched_by": "phase 3 only: no path gives bf16 at D 256",
-                         **build_info.get(tf32_instance(torch.bfloat16, 256), {})}},
+                         **f32_numbers(d256, "tf32"), "launches": 0,
+                         "launched_by": "phase 3 only: bf16 at D 256 takes sm90",
+                         **build_info.get(tf32_instance(torch.bfloat16, 256), {})},
+                     **{name: {**{k: r[k] for k in keys}, "max_abs_err": r["max_abs_err"],
+                               "library_backend": r["library_backend"], "launches": 0,
+                               "launched_by": "phase 3 only: no path gives this head dim",
+                               **build_info.get(name, {})}
+                        for name, r in tf32_only.items()}},
                  "err": max(worst.get("float32 tf32", 0.0), worst.get("bfloat16 tf32", 0.0),
                             timed["tf32_zamba2"]["max_abs_err"],
                             *(r["tf32"]["max_abs_err"] for r in f32.values()),
-                            flash_reports["d256"]["max_abs_err"])},
+                            d256["tf32"]["max_abs_err"],
+                            *(r["max_abs_err"] for r in tf32_only.values()))},
     }
     for route, row in rows.items():
         extra = {k: row[k] for k in ("instances", "long_prompt", "rerouted_launches",
@@ -3577,4 +3730,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [LATER_FLAG]:
+        sys.exit(later_phases_main(*sys.argv[2:]))
     sys.exit(main())

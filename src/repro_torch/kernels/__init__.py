@@ -7,9 +7,10 @@ Storage-path kernels, CUDA C++ for ``sm_90a`` in ``csrc/planes.cu``:
   byte_planes.py  — ZipNN byte-plane shuffle (the no-family fallback)
   hamming.py      — XOR + popcount + per-block sum: the bit distance (paper Eq. 1)
 
-Model-path kernel, CUDA C++ for ``sm_90a`` in two routes,
-``csrc/flash_attention_sm90.cu`` (wgmma, bf16 at head dims 64, 80, 128) and
-``csrc/flash_attention_tf32.cu`` (mma.sync, every other call):
+Model-path kernel, CUDA C++ for ``sm_90a`` in three routes,
+``csrc/flash_attention_sm90.cu`` (wgmma, bf16 at head dims 64, 80, 128 and
+256), ``csrc/flash_attention_sm90_tf32.cu`` (wgmma on TF32, float32 at 64, 80
+and 128) and ``csrc/flash_attention_tf32.cu`` (mma.sync, every other call):
   flash_attention.py — causal / sliding-window / bidirectional attention
                        forward with an online softmax (every family's prefill)
 

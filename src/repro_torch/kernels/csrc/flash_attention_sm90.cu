@@ -1,11 +1,13 @@
 // Hopper (sm_90a) flash-attention forward pass for bf16 q, k and v with head
-// dim 64, 80 or 128: the tensor-core route of the port's prefill (D 128: the
-// transformer families; D 80: zamba2-2.7b's shared attention; D 64: whisper).
-// Replaces src/repro/kernels/flash_attention.py::flash_attention (the Pallas
-// TPU kernel _flash_kernel and its pallas_call) for those calls; float32 at
-// those head dims takes flash_attention_sm90_tf32.cu, and every other call
-// (head dims 16/32/256, operands TMA cannot address) the TF32 kernel of
-// flash_attention_tf32.cu. kernels/flash_attention.py::route picks.
+// dim 64, 80, 128 or 256: the tensor-core route of the port's prefill (D 128:
+// the transformer families; D 80: zamba2-2.7b's shared attention; D 64:
+// whisper; D 256: the reference kernel's own test sweep, no config of the
+// repo). Replaces src/repro/kernels/flash_attention.py::flash_attention (the
+// Pallas TPU kernel _flash_kernel and its pallas_call) for those calls;
+// float32 at D 64/80/128 takes flash_attention_sm90_tf32.cu, and every other
+// call (head dims 16/32, float32 at 256, operands TMA cannot address) the
+// TF32 kernel of flash_attention_tf32.cu. kernels/flash_attention.py::route
+// picks.
 //
 // What it computes, in this order of arithmetic: scores q.k accumulated in
 // float32 from the bf16 operands; the scale applied to the float32 scores
@@ -27,10 +29,12 @@
 // against 0.23 GB of q, k, v and o, so the bound is the bf16 tensor cores:
 // 0.12 ms at 989 TFLOP/s (the bytes take 0.07 ms at 3.35 TB/s). At zamba2's
 // prefill (B 4, S 1024, H 32, D 80, causal) it is 21 GFLOP against 0.084 GB,
-// so the bytes bound it: 0.025 ms (the tensor cores need 0.022 ms). Inside
-// the SM the softmax competes with the products: a 64 x 64 tile's 4096 exp2
-// take 256 cycles of the SM's 16 a cycle, against 512 cycles of wgmma at D 128
-// (320 at D 80, 256 at D 64), so the exp2 has to run under the products.
+// so the bytes bound it: 0.025 ms (the tensor cores need 0.022 ms). At D 256
+// (B 4, S 2048, H 16, causal) the products are 137 GFLOP against 0.27 GB:
+// 0.139 ms of tensor cores. Inside the SM the softmax competes with the
+// products: a 64 x 64 tile's 4096 exp2 take 256 cycles of the SM's 16 a
+// cycle, against 512 cycles of wgmma at D 128 (320 at D 80, 256 at D 64, 1024
+// at D 256), so the exp2 has to run under the products.
 //
 // What the design does about it (one block per 128 query rows of one (batch,
 // head); grid (q blocks, H, B), q blocks reversed when causal):
@@ -49,6 +53,17 @@
 // - KV tiles are 64 keys at D 80 and 128 and 128 keys at D 64: the widest
 //   that keeps O, S and P with S's product in flight inside 168 registers
 //   (at D 128 a 128-key tile needs 64 + 64 + 32 and spills).
+// - D 256 has no producer warpgroup. O alone is 128 floats a thread, which
+//   168 registers cannot hold beside S and P; 256 threads (8 warps, 2 a
+//   register file) get 255, and ptxas uses 250 with 80-key tiles (O 128, S
+//   40, P 20). The first thread of warpgroup 1 loads: Q and the first units
+//   before the loop, then each later unit as soon as its warpgroup released
+//   the stage, which warpgroup 0 released half a turn before, so the wait is
+//   short and its warpgroup's softmax window absorbs the issue. Q is 64 KB
+//   (four panels a row) and an 80-key unit 80 KB, so two units fill 224 KB;
+//   80 keys is also where Q.K^T (m64n80k16) reads shared memory below its
+//   128 bytes a cycle (4.5 KB a 40-cycle product; n64 needs all 128, n48 and
+//   n32 more). P.V is m64n256k16, B spanning all four panels of V.
 // - K and V travel in units: unit u holds V_{u-1} and K_u (unit 0 K_0 alone,
 //   the last V alone), the two tiles one turn reads, under one "full" and one
 //   "empty" mbarrier, in a ring of 6: one barrier wait and one release a turn.
@@ -82,18 +97,20 @@
 //   launch instead of hanging the card.
 //
 // Forms measured and not kept (each checked right against the plain version,
-// timed on an H100 beside the PR 14/18 kernel; PERF.md has the account): 64-row
-// blocks, two an SM, with a producer warp (160 threads) get 168 registers too
-// (10 warps over 4 register files), and at D 128 ptxas spilled and serialised
-// the wgmma; without the producer warp, the loads a consumer thread issues
-// (expect_tx, TMA, the stage tests) stall its warpgroup every tile, and every
-// 64-row block reads K and V from L2 again; setmaxnreg (producer 24-40,
-// consumers 232-240 registers) left ptxas's allocation at 168.
+// timed on an H100 beside the kept one; PERF.md has the account): at D 256,
+// 64-key tiles in 2 units, 48 in 3 and 32 in 5. At D 64/80/128: 64-row blocks, two an SM, with a producer warp
+// (160 threads) get 168 registers too (10 warps over 4 register files), and at
+// D 128 ptxas spilled and serialised the wgmma; without the producer warp, the
+// loads a consumer thread issues (expect_tx, TMA, the stage tests) stall its
+// warpgroup every tile, and every 64-row block reads K and V from L2 again;
+// setmaxnreg (producer 24-40, consumers 232-240 registers) left ptxas's
+// allocation at 168.
 //
 // What it leaves for later: D 128 at 128-key tiles, which needs more than
 // 168 registers a thread (its softmax of a 64-key tile outlasts the other
 // warpgroup's products, so the tensor cores idle part of each turn); a
-// persistent grid with a tile scheduler; a TMA store of O; fp8; native
+// persistent grid with a tile scheduler; a TMA store of O; at D 256, two
+// blocks of a cluster sharing each K/V unit through TMA multicast; fp8; native
 // grouped-query indexing (the TPU kernel takes expanded heads, and so does
 // this interface).
 //
@@ -109,8 +126,7 @@
 namespace {
 
 constexpr int kBQ = 128;          // query rows per block: two consumer warpgroups of 64
-constexpr int kConsumers = 256;   // consumer warpgroups 0 and 1; warpgroup 2 loads
-constexpr int kThreads = 384;
+constexpr int kConsumers = 256;   // consumer warpgroups 0 and 1 (at D 64/80/128 warpgroup 2 loads)
 constexpr int kWarps = 8;         // arrivals that free a stage: one per consumer warp
 constexpr int kPanelCols = 64;    // bf16 columns in one 128-byte swizzled row (one TMA box)
 constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -122,14 +138,33 @@ constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 // barrier. K and V travel in units: unit u holds V_{u-1} and K_u (unit 0 K_0
 // alone, the last V alone), the two tiles step n of the loop reads, under
 // one barrier.
+//
+// At D 256 the block has no producer warpgroup: 256 threads, 8 warps, so ptxas
+// may give a thread 255 registers (O alone is 128 floats), and one consumer
+// thread loads (kLoader).
 template <int D>
 struct Layout {
+  static constexpr bool kProducerWarpgroup = D != 256;
+  static constexpr int kThreads = kProducerWarpgroup ? 384 : 256;
+  // the thread that issues every load: the producer warpgroup's first, or
+  // warpgroup 1's first, which releases each unit after warpgroup 0 does
+  static constexpr int kLoader = kProducerWarpgroup ? kConsumers : 128;
   static constexpr int kPanels = (D + kPanelCols - 1) / kPanelCols;
   // keys per K/V tile: 128 where O, S and P of a tile fit a thread's registers
-  // beside the product in flight (D 64: 32 + 64 + 32), else 64
-  static constexpr int kBKV = D == 64 ? 128 : 64;
+  // beside the product in flight (D 64: 32 + 64 + 32), 80 at D 256 (the most
+  // two units take beside Q; O + S + P 128 + 40 + 20), else 64
+  static constexpr int kBKV = D == 64 ? 128 : D == 256 ? 80 : 64;
   static constexpr int kS = kBKV / 2;  // S accumulator floats a thread holds for one tile
-  static constexpr int kUnits = 6;     // ring depth: 224 KB at D 80 and 128
+  // ring depth: 224 KB at D 80 and 128; at D 256 Q takes 64 KB and an 80-key
+  // unit 80 KB, so two units fill 224 KB
+  static constexpr int kUnits = D == 256 ? 2 : 6;
+  // without a producer warpgroup, warpgroup 1's loading thread refills the
+  // stage of unit u once warpgroup 0 released it too, for every u up to
+  // n_load - kUnits. Warpgroup 0 releases units 0 .. n_tiles - 1, and its
+  // causal n_tiles falls short of n_load by up to ceil(64 / kBKV): so
+  // kUnits - 1 tiles must cover its 64 rows, or that wait never ends.
+  static_assert(kProducerWarpgroup || kBKV * (kUnits - 1) >= 64,
+                "warpgroup 0 would never release a unit the loading thread waits on");
   static constexpr int kQBytes = kPanels * kBQ * kPanelCols * 2;
   static constexpr int kTileBytes = kPanels * kBKV * kPanelCols * 2;  // one K or V tile
   static constexpr int kQ = 0;
@@ -180,14 +215,44 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+#define ZLLM_ACC8(d, o)                                                                            \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]), \
+      "+f"(d[o + 6]), "+f"(d[o + 7])
+
+// D (64 x 80, f32) (+)= A (64 x 16, shared memory, K-major) * B (16 x 80, shared memory, K-major)
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : ZLLM_ACC8(d, 0), ZLLM_ACC8(d, 8), ZLLM_ACC8(d, 16), ZLLM_ACC8(d, 24), ZLLM_ACC8(d, 32)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // S (64 x N) (+)= Q (64 x 16) K^T (16 x N), both from shared memory
 template <int N>
 __device__ __forceinline__ void wgmma_ss_s(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int accumulate) {
   if constexpr (N == 128) {
     wgmma_ss_n128(d, desc_a, desc_b, accumulate);
+  } else if constexpr (N == 80) {
+    wgmma_ss_n80(d, desc_a, desc_b, accumulate);
   } else {
+    static_assert(N == 64, "no S product of this tile width");
     wgmma_ss_n64(d, desc_a, desc_b, accumulate);
   }
+}
+
+// D (64 x 256, f32) += A (64 x 16 bf16, registers) * B (16 x 256, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : ZLLM_ACC8(d, 0), ZLLM_ACC8(d, 8), ZLLM_ACC8(d, 16), ZLLM_ACC8(d, 24), ZLLM_ACC8(d, 32), ZLLM_ACC8(d, 40), ZLLM_ACC8(d, 48), ZLLM_ACC8(d, 56), ZLLM_ACC8(d, 64), ZLLM_ACC8(d, 72), ZLLM_ACC8(d, 80), ZLLM_ACC8(d, 88), ZLLM_ACC8(d, 96), ZLLM_ACC8(d, 104), ZLLM_ACC8(d, 112), ZLLM_ACC8(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // D (64 x 128, f32) += A (64 x 16 bf16, registers) * B (16 x 128, shared memory, MN-major)
@@ -247,7 +312,9 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 // O (64 x D) += P (64 x 16, registers) * V (16 x D, shared memory, MN-major)
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t desc_v) {
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    wgmma_rs_n256(d, a, desc_v, 1);
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(d, a, desc_v, 1);
   } else if constexpr (D == 80) {
     wgmma_rs_n80(d, a, desc_v, 1);
@@ -314,7 +381,7 @@ struct Units {
   __device__ __forceinline__ void release(int u) const {
     if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8 * (u % L::kUnits));
   }
-  // the producer: unit u (of n_load + 1) into its stage once all eight
+  // the loading thread: unit u (of n_load + 1) into its stage once all eight
   // consumer warps released the unit that stage held before (the first pass
   // finds every stage free)
   __device__ __forceinline__ void load(const CUtensorMap* tm_k, const CUtensorMap* tm_v, int u, int n_load,
@@ -346,7 +413,7 @@ __device__ __forceinline__ void turn_pass(int wg) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int Sq,
                       int Sk, Strides so, int causal, int window, float scale_log2) {
@@ -378,17 +445,30 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {
-    // producer warpgroup: one thread issues every load, Q and then the units
-    // in order, each into its stage as soon as the consumers have released it
-    if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(bar_q, L::kQBytes);
+  // the loading thread issues Q and then the units in order, each into its
+  // stage as soon as the consumers have released it: the producer
+  // warpgroup's thread all of them; warpgroup 1's thread (D 256) the first
+  // kUnits here and each later one in refill below
+  auto load_q = [&] {
+    mbar_expect_tx(bar_q, L::kQBytes);
 #pragma unroll
-      for (int p = 0; p < L::kPanels; ++p)
-        tma_load(sQ + p * kBQ * kRowBytes, &tm_q, bar_q, p * kPanelCols, q0, h, b);
-      for (int u = 0; u <= n_load; ++u) units.load(&tm_k, &tm_v, u, n_load, h, b);
+    for (int p = 0; p < L::kPanels; ++p)
+      tma_load(sQ + p * kBQ * kRowBytes, &tm_q, bar_q, p * kPanelCols, q0, h, b);
+  };
+  if constexpr (L::kProducerWarpgroup) {
+    if (threadIdx.x >= kConsumers) {
+      if (threadIdx.x == L::kLoader) {
+        load_q();
+        for (int u = 0; u <= n_load; ++u) units.load(&tm_k, &tm_v, u, n_load, h, b);
+      }
+      return;
     }
-    return;
+  } else {
+    if (threadIdx.x == L::kLoader) {
+      load_q();
+      for (int u = 0; u <= min(n_load, L::kUnits - 1); ++u) units.load(&tm_k, &tm_v, u, n_load, h, b);
+    }
+    __syncwarp();
   }
 
   // consumer warpgroup wg: 64 query rows. It walks the tiles up to its own
@@ -410,6 +490,17 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   auto edge = [&](int k0) {
     return k0 + kBKV > Sk || window > 0 || (causal && k0 + kBKV - 1 > wg_q0);
   };
+  // without a producer warpgroup: once warpgroup 1 released unit u, its
+  // loading thread waits for warpgroup 0's release (already made, as a rule)
+  // and loads unit u + kUnits into that stage. Warpgroup 1 walks every unit;
+  // warpgroup 0 releases all that this waits on (Layout's static_assert).
+  auto refill = [&](int u) {
+    if constexpr (!L::kProducerWarpgroup) {
+      if (threadIdx.x == L::kLoader && u + L::kUnits <= n_load)
+        units.load(&tm_k, &tm_v, u + L::kUnits, n_load, h, b);
+      __syncwarp();
+    }
+  };
 
   float acc_o[D / 2];
 #pragma unroll
@@ -428,6 +519,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   wgmma_wait<0>();
   fence_regs(acc_s);
   units.release(0);
+  refill(0);
   softmax_tile(acc_s, m, l, corr, edge(0), 0, row0, col0, Sk, causal, window, scale_log2);
   pack_p(acc_s, pa);
 
@@ -450,6 +542,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     wgmma_wait<0>();
     fence_regs(acc_o);
     units.release(n + 1);
+    refill(n + 1);
     pack_p(acc_s, pa);
   }
   units.wait(n_tiles);
@@ -507,7 +600,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t
   // the reference's scale 1 / D**0.5 with log2(e) folded in, in double, rounded once
   const float scale_log2 = static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(D)));
   const dim3 grid(static_cast<unsigned>(q_tiles), static_cast<unsigned>(H), static_cast<unsigned>(B));
-  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<int>(Sq),
+  kern<<<grid, Layout<D>::kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<int>(Sq),
                                          static_cast<int>(Sk), so, causal, window, scale_log2);
   return cudaGetLastError();
 }
@@ -517,7 +610,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int64_t
 extern "C" {
 
 // The flash_attention signature of kernels/_build.py. Takes bf16 (dtype 1)
-// with D 64, 80 or 128; the Python rule (kernels/flash_attention.py::route) also requires 16-byte
+// with D 64, 80, 128 or 256; the Python rule (kernels/flash_attention.py::route) also requires 16-byte
 // aligned base pointers and B/S/H strides. Anything else is refused with
 // cudaErrorInvalidValue.
 int zllm_flash_attention_sm90(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
@@ -532,6 +625,7 @@ int zllm_flash_attention_sm90(const void* q, const void* k, const void* v, void*
     case 64: return static_cast<int>(launch<64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, st));
     case 80: return static_cast<int>(launch<80>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, st));
     case 128: return static_cast<int>(launch<128>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, st));
+    case 256: return static_cast<int>(launch<256>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, causal, window, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

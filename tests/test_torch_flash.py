@@ -22,7 +22,7 @@ from repro.models import layers as JL
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import HEAD_DIMS, SM90_HEAD_DIMS, flash_attention, route
+from repro_torch.kernels.flash_attention import HEAD_DIMS, WGMMA_HEAD_DIMS, flash_attention, route
 from repro_torch.models import layers as TL
 
 # (B, S, H, D, causal, window): tests/test_flash_kernel.py:12-19, block sizes dropped
@@ -163,7 +163,7 @@ def test_head_dim_80_takes_the_tf32_route():
 def test_head_dim_80_takes_the_sm90_route():
     """bf16 at zamba2-2.7b's head dim 80 takes the sm90 kernel, and so does a
     D 64 slice of a D 80 tensor (its S stride, 160 bytes, TMA can step)."""
-    assert 80 in SM90_HEAD_DIMS
+    assert 80 in WGMMA_HEAD_DIMS[torch.bfloat16]
     q = torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16)
     assert route(q, q, q) == "sm90"
     assert route(q[..., :64], q[..., :64], q[..., :64]) == "sm90"

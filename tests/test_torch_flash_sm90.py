@@ -5,8 +5,8 @@ JAX package's ``repro.kernels.ref.mha_reference``.
 
 The kernel itself runs only on the card (``tests/test_torch_gpu.py``). What the
 emulation repeats, step by step in float32: KV tiles of the kernel's width at
-the head dim (128 keys at D 64, 64 at D 80 and 128), for each 64-row
-warpgroup of a 128-row q block; bf16 q.k accumulated in float32;
+the head dim (128 keys at D 64, 64 at D 80 and 128, 80 at D 256), for each
+64-row warpgroup of a 128-row q block; bf16 q.k accumulated in float32;
 the scale with log2(e) folded in, applied to the float32 scores; the mask
 after that scaling (-1e30 for keys the causal mask or the window removes,
 -inf for keys past Sk, which the kernel's TMA loads as zero rows), on tiles
@@ -33,7 +33,9 @@ GROUP = 64                # q rows per warpgroup (its causal skip's granularity)
 
 def tile_keys(D: int) -> int:
     """The kernel's keys per K/V tile at head dim D (its Layout<D>::kBKV)."""
-    return 128 if D == 64 else 64
+    return {64: 128, 256: 80}.get(D, 64)
+
+
 LOG2E = 1.4426950408889634
 TOL = 2e-2
 
@@ -120,6 +122,14 @@ CASES = [
     (2, 333, 333, 4, 80, True, 0),
     (1, 64, 300, 2, 80, False, 0),
     (1, 200, 200, 2, 80, True, 64),
+    # head dim 256: ragged over three 128-row blocks, Sq != Sk both ways, a
+    # window over ragged tiles, and a bidirectional window with Sq > Sk whose
+    # rows from 47 on have every key masked
+    (2, 333, 333, 3, 256, True, 0),
+    (1, 300, 170, 2, 256, True, 0),
+    (1, 170, 300, 2, 256, False, 0),
+    (1, 260, 260, 2, 256, True, 63),
+    (1, 192, 40, 2, 256, False, 8),
 ]
 # the edges of the kernel's KV tiles and 64-row warpgroups, at each head dim
 # of the route: Sk one short of, at and one past a 64-key tile (and of two);
@@ -134,6 +144,10 @@ EDGE_CASES = [
                                                           (65, 128, True))],
     (2, 64, 64, 3, 128, True, 0),
     (1, 192, 40, 2, 64, False, 8),
+    # D 256 (80-key tiles): Sk one short of and one past a tile and one past
+    # two, Sq one past a 128-row block, a window of 81
+    (1, 100, 79, 2, 256, False, 0), (1, 100, 81, 2, 256, False, 0), (1, 170, 161, 2, 256, False, 0),
+    (1, 129, 129, 2, 256, True, 0), (1, 200, 200, 2, 256, True, 81),
 ]
 
 
@@ -163,7 +177,7 @@ def _bf16(shape, seed=0):
                             .astype(np.float32)).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS[torch.bfloat16])
 def test_route_takes_sm90_for_aligned_bf16(D):
     q, k, v = (_bf16((2, 33, 3, D), s) for s in range(3))
     assert all(t.data_ptr() % 16 == 0 for t in (q, k, v))
@@ -176,13 +190,22 @@ def test_route_takes_sm90_for_aligned_bf16(D):
     assert one.stride() == (D + 8, D + 8, D + 8, 1) and fa.route(one, one, one) == "sm90"
 
 
-@pytest.mark.parametrize("D", [16, 32, 256])
-def test_route_takes_tf32_for_other_head_dims(D):
-    q, k, v = (_bf16((1, 40, 2, D), s) for s in range(3))
+# (dtype, D) of aligned contiguous operands at the head dims no wgmma route
+# of their dtype has: both dtypes at D 16 and 32, float32 at D 256 (bf16 at
+# D 256 takes sm90: test_route_takes_sm90_for_aligned_bf16)
+OTHER_HEAD_DIMS = [(torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float32, 16),
+                   (torch.float32, 32), (torch.float32, 256)]
+
+
+@pytest.mark.parametrize("dtype,D", OTHER_HEAD_DIMS,
+                         ids=[f"{D}" if dt == torch.bfloat16 else f"float32-{D}"
+                              for dt, D in OTHER_HEAD_DIMS])
+def test_route_takes_tf32_for_other_head_dims(dtype, D):
+    q, k, v = (_bf16((1, 40, 2, D), s).to(dtype) for s in range(3))
     assert fa.route(q, k, v) == "tf32"
 
 
-@pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS[torch.float32])
 def test_route_takes_tf32_for_float32(D):
     """float32 never takes sm90: aligned it takes sm90_tf32, and tf32 where a
     base pointer is off a 16-byte boundary or heads are broadcast."""
@@ -193,7 +216,7 @@ def test_route_takes_tf32_for_float32(D):
     assert fa.route(q, k[:, :, :1].expand(1, 40, 2, D), v) == "tf32"
 
 
-@pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS[torch.bfloat16])
 def test_route_takes_tf32_for_what_tma_cannot_address(D):
     q, k, v = (_bf16((1, 40, 2, D), s) for s in range(3))
     # a base pointer 2 bytes off a 16-byte boundary

@@ -38,7 +38,7 @@ from repro_torch.kernels import flash_attention as fa
 BQ = 64                    # the kernel's q rows per block (one consumer warpgroup)
 LOG2E = 1.4426950408889634
 TOL = 2e-5
-CASES = [c for c in FLASH_CASES if c[4] in fa.SM90_HEAD_DIMS]
+CASES = [c for c in FLASH_CASES if c[4] in fa.WGMMA_HEAD_DIMS[torch.float32]]
 
 
 def kv_tile(D: int) -> int:
@@ -157,7 +157,7 @@ def _jax(jq, jk, jv, causal, window):
 
 
 def test_cases_cover_every_head_dim_of_the_kernel():
-    assert {c[4] for c in CASES} == set(fa.SM90_HEAD_DIMS) == {64, 80, 128}
+    assert {c[4] for c in CASES} == set(fa.WGMMA_HEAD_DIMS[torch.float32]) == {64, 80, 128}
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
@@ -208,7 +208,7 @@ def _f32(shape, seed=0):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(np.float32))
 
 
-@pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS[torch.float32])
 def test_route_takes_sm90_tf32_for_aligned_float32(D):
     q, k, v = (_f32((2, 33, 3, D), s) for s in range(3))
     assert all(t.data_ptr() % 16 == 0 for t in (q, k, v))
@@ -227,7 +227,7 @@ def test_route_takes_tf32_for_float32_at_other_head_dims(D):
     assert fa.route(q, k, v) == "tf32"
 
 
-@pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS[torch.float32])
 def test_route_takes_tf32_for_float32_tma_cannot_address(D):
     q, k, v = (_f32((1, 40, 2, D), s) for s in range(3))
     # base pointers 4 and 8 bytes off a 16-byte boundary

@@ -274,13 +274,22 @@ FLASH_CASES = [
     (4, 1500, 1500, 16, 64, False, 0),
     (4, 64, 64, 16, 64, True, 0),
     (4, 64, 1500, 16, 64, False, 0),
+    # head dim 256 (sm90 in bf16, tf32 in float32): ragged over three 128-row
+    # blocks, Sk one short of and one past the sm90 kernel's 80-key tile and
+    # one past two, Sq one past a block, Sq != Sk both ways, windows of 63 and
+    # 81, rows from 47 on fully masked
+    (2, 333, 333, 3, 256, True, 0), (1, 100, 79, 2, 256, False, 0), (1, 100, 81, 2, 256, False, 0),
+    (1, 170, 161, 2, 256, False, 0), (1, 129, 129, 2, 256, True, 0), (1, 300, 170, 2, 256, True, 0),
+    (1, 170, 300, 2, 256, False, 0), (1, 260, 260, 2, 256, True, 63), (1, 200, 200, 2, 256, True, 81),
+    (1, 192, 40, 2, 256, False, 8),
 ]
 
 
 def _route(dtype, D):
     """The route a new contiguous operand of this dtype and head dim takes:
-    at D 64/80/128 sm90 in bf16 and sm90_tf32 in float32, else tf32."""
-    if D not in flash_attention.SM90_HEAD_DIMS:
+    sm90 in bf16 at D 64/80/128/256, sm90_tf32 in float32 at D 64/80/128,
+    else tf32."""
+    if D not in flash_attention.WGMMA_HEAD_DIMS[dtype]:
         return "tf32"
     return "sm90" if dtype == torch.bfloat16 else "sm90_tf32"
 
@@ -297,8 +306,8 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, Sq, Sk, H, D, causal, window = case
     q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), dtype, 20, cuda)
-    # contiguous new tensors: bf16 at D 64/80/128 takes sm90, float32 there
-    # sm90_tf32, the rest tf32
+    # contiguous new tensors: bf16 at D 64/80/128/256 takes sm90, float32 at
+    # D 64/80/128 sm90_tf32, the rest tf32
     route = _route(dtype, D)
     assert flash_attention.route(q, k, v) == route
     before = _build.launch_counts()["flash_attention"]
@@ -314,7 +323,7 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", flash_attention.WGMMA_HEAD_DIMS[torch.bfloat16])
 def test_flash_attention_reads_strided_operands(cuda, D):
     """q, k and v sliced out of one fused (B, S, 3H, D) projection: the kernel
     reads them through their strides (at D 80 a row is 160 bytes, two TMA
@@ -330,7 +339,7 @@ def test_flash_attention_reads_strided_operands(cuda, D):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", flash_attention.WGMMA_HEAD_DIMS[torch.float32])
 def test_flash_attention_sm90_tf32_reads_strided_operands(cuda, D, monkeypatch):
     """float32 q, k and v sliced out of one fused (B, S, 3H, D) projection:
     the sm90_tf32 kernel reads them in place through their strides (at D 80 a
@@ -350,7 +359,7 @@ def test_flash_attention_sm90_tf32_reads_strided_operands(cuda, D, monkeypatch):
     assert flash_attention.route_launches()["sm90_tf32"] == before + 3
 
 
-@pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", flash_attention.WGMMA_HEAD_DIMS[torch.float32])
 def test_flash_attention_sm90_tf32_kernel_at_each_head_dim(cuda, D, monkeypatch):
     """The sm90_tf32 kernel launched directly at each head dim it is built
     for, at ragged lengths and the edges of its 32- and 64-key tiles, within
@@ -367,7 +376,7 @@ def test_flash_attention_sm90_tf32_kernel_at_each_head_dim(cuda, D, monkeypatch)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("D", flash_attention.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", flash_attention.WGMMA_HEAD_DIMS[torch.bfloat16])
 def test_flash_attention_misaligned_slice_takes_tf32(cuda, D):
     """A bf16 operand 2 bytes off a 16-byte boundary is one no tensor map can
     address: the call takes the tf32 kernel and is still right."""
@@ -408,8 +417,8 @@ def test_flash_attention_tf32_reads_any_alignment(cuda, dtype, offset, monkeypat
 
 
 def test_flash_attention_route_rules_by_head_dim(cuda):
-    """bf16 at D 64, 80 and 128 takes sm90, float32 there sm90_tf32; the
-    other head dims take tf32; each launches and matches the plain version."""
+    """bf16 at D 64, 80, 128 and 256 takes sm90, float32 at D 64, 80 and 128
+    sm90_tf32; the other calls take tf32; each launches and matches the plain version."""
     for D in flash_attention.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = _qkv((1, 70, 2, D), (1, 70, 2, D), dt, D, cuda)
