@@ -199,23 +199,25 @@ Phase 3 also holds the flash-attention kernels (routes ``sm90``, ``sm90_tf32`` a
 against their plain version (``ref.mha_reference``) at the reference tests'
 cases, ragged lengths, every head dim (80 included), Sq != Sk, bidirectional
 and windowed masks, fully masked rows, the edges of the sm90 kernel's 64-key
-tiles and 128-row blocks (at D 256 too), strided (fused-projection) and
-misaligned operands (float32 and bf16 slices 2-8 bytes off a 16-byte
+tiles and 128-row blocks (at D 16, 32 and 256 too), strided (fused-projection)
+and misaligned operands (float32 and bf16 slices 2-8 bytes off a 16-byte
 boundary) and heads broadcast with stride 0, asserting the route of each call
-(bf16 at D 64, 80, 128 and 256 with TMA-addressable operands takes ``sm90``,
-float32 at D 64, 80 and 128 with such operands ``sm90_tf32``, every other
-call ``tf32``). It times
+(bf16 with TMA-addressable operands takes ``sm90`` at every head dim, float32
+at D 64, 80 and 128 with such operands ``sm90_tf32``, every other call
+``tf32``). It times
 each ``sm90`` instance at its path's shape: D 128 at the shapes phase 7's
 prefills give the kernel (B 4, S 2032 and 512, H 28, causal), D 80 at zamba2-2.7b's (4, 1024, 32, causal), D 64 at whisper-medium's
 encoder (4, 1500, 16, bidirectional); D 128 also at a 32k-token prompt (B 1,
 S 32768, H 28, causal), its rows 0-2047 held to the plain version on the
 first 2048 keys (exact by causality) and every row to SDPA's output; in bf16
-at D 256 (B 4, S 2048, H 16, causal) ``sm90`` and ``tf32``, and on float32
-inputs, at phase 7's, zamba2-2.7b's and whisper-medium's encoder shapes,
-``sm90_tf32`` and ``tf32``, each launched directly, in turns; ``tf32`` alone
-at B 4, S 2048, H 16, causal in float32 at D 256 and in both dtypes at D 16
-and 32; each beside its bound (float32 at the TF32 rate, with the three
-passes' ceiling where wgmma is paired with it), the plain version
+at D 256, 16 and 32 (B 4, S 2048, H 16, causal) ``sm90`` and ``tf32``, and on
+float32 inputs, at phase 7's, zamba2-2.7b's and whisper-medium's encoder
+shapes, ``sm90_tf32`` and ``tf32``, each launched directly, in turns;
+``tf32`` alone at B 4, S 2048, H 16, causal in float32 at D 256, 16 and 32;
+each beside its bound (the largest of the products at the dtype's
+tensor-core rate, one exp2 a pair at 16 a cycle per SM, and the bytes;
+float32 with the three passes' ceiling where wgmma is paired with it), the
+plain version
 and ``torch.nn.functional.scaled_dot_product_attention`` (on float32 inputs
 with TF32 off, the backend it dispatched to named), with the wrapper's host
 time per call.
@@ -287,6 +289,10 @@ SEED = 0  # every weight and input of the run is drawn from generators seeded fr
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate (used for every bound below)
 BF16_FLOP_PER_S = 989e12   # H100 SXM published dense bf16 tensor-core rate
 TF32_FLOP_PER_S = 495e12   # H100 SXM published dense TF32 tensor-core rate
+# exp2 a second: the MUFU's 16 a cycle per SM (CUDA's throughput table for
+# compute capability 9.0), 132 SMs, at the SM's highest clock, 1.98 GHz
+# (nvidia-smi's clocks.max.sm; tools/exp2_peak.py's softmax mix stays below)
+EXP2_PER_S = 16 * 132 * 1.98e9
 
 # Qwen2-7B's published widths (src/repro/configs/qwen2_7b.py:5-12)
 QWEN2_7B = dict(d_model=3584, d_ff=18944, vocab=152064, n_heads=28, n_kv_heads=4, qkv_bias=True)
@@ -560,6 +566,12 @@ FLASH_CASES = [
     (1, 170, 161, 2, 256, False, 0), (1, 129, 129, 2, 256, True, 0), (1, 300, 170, 2, 256, True, 0),
     (1, 170, 300, 2, 256, False, 0), (1, 260, 260, 2, 256, True, 63), (1, 200, 200, 2, 256, True, 81),
     (1, 192, 40, 2, 256, False, 8),
+    # head dims 16 and 32 (the sm90 kernel's 64-key tiles there): Sk one short
+    # of, one past a tile and one past two, a 64-row causal diagonal, Sq !=
+    # Sk, windows of 63 and 65, rows from 47 on fully masked
+    (1, 100, 63, 2, 16, False, 0), (1, 100, 65, 2, 32, False, 0), (1, 170, 129, 2, 16, False, 0),
+    (2, 64, 64, 3, 32, True, 0), (1, 300, 170, 2, 16, True, 0), (1, 200, 200, 2, 32, True, 63),
+    (1, 200, 200, 2, 16, False, 65), (1, 192, 40, 2, 32, False, 8),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_flash_kernel.py:33
 # (B, S) of the timed shapes, all bf16 causal at Qwen2-7B's 28 query heads of
@@ -575,12 +587,12 @@ FLASH_H, FLASH_D = 28, 128
 # whisper-medium's encoder (phase 9a). The first is the kernels line's.
 FLASH_TIMED_F32 = {"phase 7": (4, 2032, 28, 128, True), "zamba2": (4, 1024, 32, 80, True),
                    "whisper encoder": (4, 1500, 16, 64, False)}
-# bf16 at head dim 256: sm90 and the tf32 route's one pass, in turns
-FLASH_TIMED_D256 = (4, 2048, 16, 256, True)
+# bf16 at head dims 256, 16 and 32, which no path gives: sm90 and the tf32
+# route's one pass, in turns
+FLASH_TIMED_BF16 = {D: (4, 2048, 16, D, True) for D in (256, 16, 32)}
 # the tf32 route's instances that no path and no timing above takes, each at
 # B 4, S 2048, H 16, causal: (dtype, head dim)
-FLASH_TIMED_TF32 = ((torch.float32, 256), (torch.float32, 16), (torch.bfloat16, 16),
-                    (torch.float32, 32), (torch.bfloat16, 32))
+FLASH_TIMED_TF32 = ((torch.float32, 256), (torch.float32, 16), (torch.float32, 32))
 FLASH_TIMED_TF32_SHAPE = (4, 2048, 16, True)  # B, S, H, causal
 # the other sm90 instances at their paths' shapes (B, S, H, D, causal):
 # zamba2-2.7b's shared attention (phase 9b) and whisper-medium's encoder (9a)
@@ -635,16 +647,19 @@ def flash_checked(q, k, v, causal: bool, window: int = 0, *, route: str) -> tupl
 
 def flash_bound(B: int, S: int, H: int, D: int, causal: bool = True,
                 dtype=torch.bfloat16, passes: int = 1) -> tuple:
-    """(bound ms, what bounds it) of self attention at these shapes: both
-    products over the unmasked (q, k) pairs at the tensor-core rate of the
-    dtype (bf16; TF32 for float32), ``passes`` times over, against each input
-    read and the output written once at the memory rate. ``passes`` 3 gives
-    the ceiling of the tf32 kernel's three-pass float32 products."""
+    """(bound ms, the term that sets it) of self attention at these shapes:
+    the largest of "products", both products over the unmasked (q, k) pairs
+    at the tensor-core rate of the dtype (bf16; TF32 for float32), ``passes``
+    times over; "exponentials", one exp2 a pair at EXP2_PER_S (in bf16 it
+    passes the products only below D 60); "bytes", each input read and the
+    output written once at the memory rate. ``passes`` 3 gives the ceiling of
+    the tf32 kernel's three-pass float32 products."""
     pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else TF32_FLOP_PER_S
-    ops_ms = passes * 4 * pairs * D / rate * 1e3
-    bytes_ms = 4 * B * S * H * D * torch.finfo(dtype).bits // 8 / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    terms = {"products": passes * 4 * pairs * D / rate * 1e3, "exponentials": pairs / EXP2_PER_S * 1e3,
+             "bytes": 4 * B * S * H * D * torch.finfo(dtype).bits // 8 / HBM_BYTES_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], term
 
 
 def sdpa_backend(q, k, v, causal: bool) -> str:
@@ -671,8 +686,8 @@ def time_flash_pair(label: str, B: int, S: int, H: int, D: int, causal: bool,
     and the tf32 kernel (mma.sync) at one shape, each launched directly (so
     the one the route does not pick is timed too) and held to the plain
     version, in turns, beside the plain version and SDPA on the same inputs
-    (float32 with TF32 off), the bound at the dtype's tensor-core rate and,
-    in float32, the three passes' ceiling."""
+    (float32 with TF32 off), the bound (:func:`flash_bound`, its term named)
+    and, in float32, the three passes' ceiling."""
     f32 = dtype == torch.float32
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(dtype) for _ in range(3))
     wgmma = fa._WGMMA_ROUTE[dtype]
@@ -696,6 +711,9 @@ def time_flash_pair(label: str, B: int, S: int, H: int, D: int, causal: bool,
     r["bound_ms"], r["bound_by"] = flash_bound(B, S, H, D, causal, dtype)
     if f32:
         r["passes_bound_ms"], _ = flash_bound(B, S, H, D, causal, torch.float32, passes=3)
+    rate = {"products": "495 TFLOP/s TF32" if f32 else "989 TFLOP/s bf16",
+            "exponentials": "16 exp2 a cycle per SM, 132 SMs, 1.98 GHz",
+            "bytes": "3.35 TB/s"}[r["bound_by"]]
     mode = "causal" if causal else "bidirectional"
     for route in calls:
         t = r[route]
@@ -703,8 +721,7 @@ def time_flash_pair(label: str, B: int, S: int, H: int, D: int, causal: bool,
                    f"{r['passes_bound_ms'] / t['ms']:.1%} of it" if f32 else "")
         log(f"kernel {FLASH[route]['name']} ({route}{', routed' if route == r['route'] else ''}): "
             f"{t['ms']:.4f} ms at {label} B={B} S={S} H={H} D={D} {r['dtype']} {mode} (bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']} at "
-            f"{'495 TFLOP/s TF32' if f32 else '989 TFLOP/s bf16'}, "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} at {rate}, "
             f"{r['bound_ms'] / t['ms']:.1%} of it{ceiling}); host "
             f"{t['host_us']:.1f} us per call; plain version {r['plain_ms']:.4f} ms; library: "
             f"{FLASH_LIBRARY} {r['dtype']} ({r['library_backend']}"
@@ -759,10 +776,10 @@ def time_flash_long(gen: torch.Generator) -> dict:
 def phase_flash(gen: torch.Generator) -> dict:
     """The flash kernels against their plain version; their times at the
     serving path's shapes. Returns sm90's report entry (phase 7's bf16 S 2032
-    shape) and, under "sm90_80", "sm90_64", "sm90_long", "f32", "d256" and
+    shape) and, under "sm90_80", "sm90_64", "sm90_long", "f32", "bf16" and
     "tf32_only", the other sm90 instances, the 32k row, the float32 timings
-    of sm90_tf32 and tf32, the bf16 D 256 timing of sm90 and tf32, and the
-    tf32 instances timed alone."""
+    of sm90_tf32 and tf32, the bf16 timings of sm90 and tf32 in turns at D
+    256, 16 and 32 (by head dim), and the tf32 instances timed alone."""
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     bf16 = torch.bfloat16
     fa.reset_route_launches()
@@ -775,6 +792,12 @@ def phase_flash(gen: torch.Generator) -> dict:
             key = (str(dt).split(".")[-1], flash_route(dt, D))
             worst[key] = max(worst.get(key, 0.0),
                              flash_checked(q, k, v, causal, window, route=key[1])[1])
+            if dt == bf16 and D in (16, 32):
+                # the tf32 route's bf16 instances here keep the calls TMA
+                # cannot address (below): launched directly at these cases
+                got = fa._launch("tf32", q, k, v, causal, window)
+                worst[("bfloat16", "tf32")] = max(worst.get(("bfloat16", "tf32"), 0.0),
+                                                  held_to_plain(got, q, k, v, causal, window))
     if flash_route(bf16, 256) != "sm90" or worst.get(("bfloat16", "sm90")) is None:
         raise AssertionError("bf16 at D 256 does not take the sm90 route")
     for D in fa.WGMMA_HEAD_DIMS[bf16]:
@@ -842,15 +865,17 @@ def phase_flash(gen: torch.Generator) -> dict:
         reports[f"sm90_{D_}"] = _time_flash(*shape, "sm90", gen)
     reports["sm90_long"] = time_flash_long(gen)
 
-    # bf16 at D 256: sm90 and the tf32 route's one pass, in turns
-    d256 = time_flash_pair("D 256", *FLASH_TIMED_D256, gen, dtype=bf16)
-    if d256["route"] != "sm90":
-        raise AssertionError(f"bf16 at D 256 takes route {d256['route']}")
+    # bf16 at D 256, 16 and 32: sm90 and the tf32 route's one pass, in turns
+    pairs = {D: time_flash_pair(f"D {D}", *shape, gen, dtype=bf16)
+             for D, shape in FLASH_TIMED_BF16.items()}
+    if any(r["route"] != "sm90" for r in pairs.values()):
+        raise AssertionError(f"bf16 at D 256, 16 or 32 leaves the sm90 route: "
+                             f"{[(r['shape'], r['route']) for r in pairs.values()]}")
     # float32 at the families' shapes: sm90_tf32 and tf32 beside the plain
     # version and SDPA
     f32 = {label: time_flash_pair(label, *shape, gen)
            for label, shape in FLASH_TIMED_F32.items()}
-    reports["f32"], reports["d256"] = f32, d256
+    reports["f32"], reports["bf16"] = f32, pairs
     if any(flash_route(dt, D) != "tf32" for dt, D in FLASH_TIMED_TF32):
         raise AssertionError(f"a call of {FLASH_TIMED_TF32} leaves the tf32 route")
     B, S, H, causal = FLASH_TIMED_TF32_SHAPE
@@ -3592,11 +3617,12 @@ def main() -> int:
     # (sm90: phase 7's S 2032 bf16 prefill, D 128; sm90_tf32 and tf32: the
     # same shape in float32, phase 7's float32 prefill), and per instance its
     # path's shape, launches and build report (sm90: D 128 phase 7, D 80 9b,
-    # D 64 9a, each timed in phase 3, D 256 timed only there, and D 128 at a
-    # 32k-token prompt; sm90_tf32: float32 D 128 phase 7, D 80 9b, D 64 9a;
-    # tf32, which no path of the smoke takes: the same float32 shapes, each
-    # timed in phase 3 beside sm90_tf32, bf16 D 80 at 9b's shape, bf16 D 256
-    # beside sm90, and float32 D 256 and both dtypes at D 16 and 32 alone)
+    # D 64 9a, each timed in phase 3, D 256, 16 and 32 timed only there, and
+    # D 128 at a 32k-token prompt; sm90_tf32: float32 D 128 phase 7, D 80 9b,
+    # D 64 9a; tf32, which no path of the smoke takes: the same float32
+    # shapes, each timed in phase 3 beside sm90_tf32, bf16 D 80 at 9b's
+    # shape, bf16 D 256, 16 and 32 beside sm90, and float32 D 256, 16 and 32
+    # alone)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     timed = families["timed"]
     mf = mesh_families["launches"]
@@ -3610,7 +3636,7 @@ def main() -> int:
                        + mf["whisper"]["sm90"],
                        "phases 9a and 12a (whisper-medium, unsharded and on a (1, 1) mesh)")}
     long = flash_reports["sm90_long"]
-    d256, tf32_only = flash_reports["d256"], flash_reports["tf32_only"]
+    bf16_pairs, tf32_only = flash_reports["bf16"], flash_reports["tf32_only"]
     w32, z32 = (families[n]["float32_flash"] for n in ("whisper", "zamba2"))
     # the float32 prefills, each on sm90_tf32 (checked below): (phase 3's
     # timing at the path's shape, the path's run)
@@ -3639,10 +3665,11 @@ def main() -> int:
                          **{k: r[k] for k in keys}, "launches": n, "launched_by": by,
                          **build_info.get(f"flash_fwd_sm90_kernel<{D}>", {})}
                         for D, (r, n, by) in sm90_paths.items()},
-                     "flash_fwd_sm90_kernel<256>": {
-                         **f32_numbers(d256, "sm90"), "launches": 0,
-                         "launched_by": "phase 3 only: no path gives bf16 at D 256",
-                         **build_info.get("flash_fwd_sm90_kernel<256>", {})}},
+                     **{f"flash_fwd_sm90_kernel<{D}>": {
+                         **f32_numbers(r, "sm90"), "launches": 0,
+                         "launched_by": f"phase 3 only: no path of the smoke gives bf16 at D {D}",
+                         **build_info.get(f"flash_fwd_sm90_kernel<{D}>", {})}
+                        for D, r in bf16_pairs.items()}},
                  "long_prompt": {**{k: long[k] for k in keys if k != "plain_ms"},
                                  "plain_ms": None, "launches": 0,
                                  "launched_by": "phase 3 only (the dry run's prefill_32k length)",
@@ -3651,7 +3678,7 @@ def main() -> int:
                  "err": max(flash_reports["sm90"]["max_abs_err"], path_err,
                             flash_reports["sm90_80"]["max_abs_err"],
                             flash_reports["sm90_64"]["max_abs_err"], long["max_abs_err"],
-                            d256["sm90"]["max_abs_err"],
+                            *(r["sm90"]["max_abs_err"] for r in bf16_pairs.values()),
                             families["whisper"]["flash_err"], families["zamba2"]["flash_err"],
                             *(r["flash_err"] for r in mesh_families["serve"].values()))},
         "sm90_tf32": {"main": f32_numbers(f32["phase 7"], "sm90_tf32"),
@@ -3670,8 +3697,7 @@ def main() -> int:
         "tf32": {"main": f32_numbers(f32["phase 7"], "tf32"),
                  "launches": 0,
                  "launched_by": "phase 3 only: no path of the smoke routes a call to it (it takes "
-                                "float32 at D 256, both dtypes at D 16 and 32 and operands TMA "
-                                "cannot address)",
+                                "float32 at D 16, 32 and 256 and operands TMA cannot address)",
                  "rerouted_launches": rerouted,
                  "rerouted_by": "phase 9b's warm prefills with zamba2-2.7b's bf16 flash calls "
                                 "sent to it, in turns with sm90, off the path",
@@ -3688,10 +3714,11 @@ def main() -> int:
                                         "zamba2-2.7b's bf16 prefill takes sm90",
                          "rerouted_launches": rerouted,
                          **build_info.get(tf32_instance(torch.bfloat16, 80), {})},
-                     tf32_instance(torch.bfloat16, 256): {
-                         **f32_numbers(d256, "tf32"), "launches": 0,
-                         "launched_by": "phase 3 only: bf16 at D 256 takes sm90",
-                         **build_info.get(tf32_instance(torch.bfloat16, 256), {})},
+                     **{tf32_instance(torch.bfloat16, D): {
+                         **f32_numbers(r, "tf32"), "launches": 0,
+                         "launched_by": f"phase 3 only: bf16 at D {D} takes sm90",
+                         **build_info.get(tf32_instance(torch.bfloat16, D), {})}
+                        for D, r in bf16_pairs.items()},
                      **{name: {**{k: r[k] for k in keys}, "max_abs_err": r["max_abs_err"],
                                "library_backend": r["library_backend"], "launches": 0,
                                "launched_by": "phase 3 only: no path gives this head dim",
@@ -3700,7 +3727,7 @@ def main() -> int:
                  "err": max(worst.get("float32 tf32", 0.0), worst.get("bfloat16 tf32", 0.0),
                             timed["tf32_zamba2"]["max_abs_err"],
                             *(r["tf32"]["max_abs_err"] for r in f32.values()),
-                            d256["tf32"]["max_abs_err"],
+                            *(r["tf32"]["max_abs_err"] for r in bf16_pairs.values()),
                             *(r["max_abs_err"] for r in tf32_only.values()))},
     }
     for route, row in rows.items():
@@ -3713,6 +3740,8 @@ def main() -> int:
             "replaces": FLASH_REPLACES, "flash_route": route,
             "launches": row["launches"], "launched_by": row["launched_by"], "matched": True,
             "max_abs_err": row["err"], **{k: row["main"][k] for k in keys},
+            # the contract's two names: products and exponentials are operations
+            "bound_by": "bytes" if row["main"]["bound_by"] == "bytes" else "operations",
             "library": FLASH_LIBRARY, **extra,
             **build_info.get(row["instance"], {}), "card": smi,
         })

@@ -66,11 +66,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (all in 16-byte units), layout type 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory matrix descriptor of rows swizzled in `row` bytes (128,
+// 64 or 32: layout type 1, 2 or 3): start address, leading and stride byte
+// offsets (all in 16-byte units).
+__device__ __forceinline__ uint64_t swizzle_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint32_t row) {
+  const uint64_t layout = row == 128 ? 1 : row == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return swizzle_desc(addr, lbo, sbo, 128);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -213,11 +218,12 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map over (D, S, H, B) of an operand of `elem`-byte elements of type
-// `type` with the given element strides; boxes of {128 bytes of columns, rows,
-// 1, 1}, 128-byte swizzle, zero fill out of bounds. A dim of extent 1 is only
-// read at coordinate 0, so its stride is free and gets one TMA accepts.
+// `type` with the given element strides; boxes of {`row` bytes of columns,
+// rows, 1, 1}, swizzled in `row` bytes (128, 64 or 32), zero fill out of
+// bounds. A dim of extent 1 is only read at coordinate 0, so its stride is
+// free and gets one TMA accepts.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t H, int64_t D,
-                     Strides st, int rows, CUtensorMapDataType type, int elem) {
+                     Strides st, int rows, CUtensorMapDataType type, int elem, uint32_t row = kRowBytes) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   auto bytes = [D, elem](int64_t extent, int64_t stride) {
@@ -226,10 +232,13 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, in
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {bytes(S, st.s), bytes(H, st.h), bytes(B, st.b)};
-  const cuuint32_t box[4] = {kRowBytes / static_cast<cuuint32_t>(elem), static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {row / static_cast<cuuint32_t>(elem), static_cast<cuuint32_t>(rows), 1, 1};
+  const CUtensorMapSwizzle swizzle = row == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, type, 4, const_cast<void*>(ptr), dims, strides,
-                            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -206,8 +206,8 @@ def test_cuda_tensors_go_to_the_launcher(monkeypatch):
         with pytest.raises(RuntimeError, match="no card"):
             flash_attention(q, k, v, causal=True, window=3)
     (kernel, dev, args), = calls
-    # bf16 at head dim 32 takes the tf32 route, whose launcher has the same C signature
-    assert kernel == "flash_attention_tf32" and dev == "cuda"
+    # bf16 at head dim 32 with strides TMA can step takes the sm90 route
+    assert kernel == "flash_attention_sm90" and dev == "cuda"
     fused = (5 * 12 * 32, 12 * 32, 32)
     out = (5 * 4 * 32, 4 * 32, 32)
     assert args == (2, 5, 5, 4, 32, *fused, *fused, *fused, *out, 1, 3, 1)

@@ -5,7 +5,7 @@ JAX package's ``repro.kernels.ref.mha_reference``.
 
 The kernel itself runs only on the card (``tests/test_torch_gpu.py``). What the
 emulation repeats, step by step in float32: KV tiles of the kernel's width at
-the head dim (128 keys at D 64, 64 at D 80 and 128, 80 at D 256), for each
+the head dim (128 keys at D 64, 80 at D 256, 64 at the others), for each
 64-row warpgroup of a 128-row q block; bf16 q.k accumulated in float32;
 the scale with log2(e) folded in, applied to the float32 scores; the mask
 after that scaling (-1e30 for keys the causal mask or the window removes,
@@ -130,6 +130,12 @@ CASES = [
     (1, 170, 300, 2, 256, False, 0),
     (1, 260, 260, 2, 256, True, 63),
     (1, 192, 40, 2, 256, False, 8),
+    # head dims 16 and 32: ragged, Sq != Sk both ways, a window over ragged
+    # tiles
+    (2, 77, 77, 3, 16, True, 0),
+    (1, 300, 170, 2, 32, True, 0),
+    (1, 170, 300, 2, 16, False, 0),
+    (1, 260, 260, 2, 32, True, 64),
 ]
 # the edges of the kernel's KV tiles and 64-row warpgroups, at each head dim
 # of the route: Sk one short of, at and one past a 64-key tile (and of two);
@@ -148,6 +154,16 @@ EDGE_CASES = [
     # two, Sq one past a 128-row block, a window of 81
     (1, 100, 79, 2, 256, False, 0), (1, 100, 81, 2, 256, False, 0), (1, 170, 161, 2, 256, False, 0),
     (1, 129, 129, 2, 256, True, 0), (1, 200, 200, 2, 256, True, 81),
+    # D 16 and 32 (64-key tiles): Sk one short of, at and one past a tile
+    # and one past two, causal and not; a window one short of, at and one
+    # past a tile; a 64-row causal diagonal; a bidirectional window with Sq >
+    # Sk whose rows from 47 on have every key masked
+    *[(1, 100, Sk, 2, D, False, 0) for D in (16, 32) for Sk in (63, 64, 65, 129)],
+    *[(1, Sk, Sk, 2, D, True, 0) for Sk, D in ((63, 32), (64, 16), (65, 32), (129, 16))],
+    *[(1, 200, 200, 2, D, causal, w) for D in (16, 32)
+      for w, causal in ((63, True), (64, False), (65, True))],
+    *[(2, 64, 64, 3, D, True, 0) for D in (16, 32)],
+    *[(1, 192, 40, 2, D, False, 8) for D in (16, 32)],
 ]
 
 
@@ -191,10 +207,9 @@ def test_route_takes_sm90_for_aligned_bf16(D):
 
 
 # (dtype, D) of aligned contiguous operands at the head dims no wgmma route
-# of their dtype has: both dtypes at D 16 and 32, float32 at D 256 (bf16 at
-# D 256 takes sm90: test_route_takes_sm90_for_aligned_bf16)
-OTHER_HEAD_DIMS = [(torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float32, 16),
-                   (torch.float32, 32), (torch.float32, 256)]
+# of their dtype has: float32 at D 16, 32 and 256 (bf16 at every head dim
+# takes sm90: test_route_takes_sm90_for_aligned_bf16)
+OTHER_HEAD_DIMS = [(torch.float32, 16), (torch.float32, 32), (torch.float32, 256)]
 
 
 @pytest.mark.parametrize("dtype,D", OTHER_HEAD_DIMS,

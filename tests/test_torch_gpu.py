@@ -282,12 +282,17 @@ FLASH_CASES = [
     (1, 170, 161, 2, 256, False, 0), (1, 129, 129, 2, 256, True, 0), (1, 300, 170, 2, 256, True, 0),
     (1, 170, 300, 2, 256, False, 0), (1, 260, 260, 2, 256, True, 63), (1, 200, 200, 2, 256, True, 81),
     (1, 192, 40, 2, 256, False, 8),
+    # head dims 16 and 32 (sm90 in bf16, at 64-key tiles; tf32 in float32):
+    # Sk one short of and one past a tile, a 64-row causal diagonal, a window
+    # of 65, rows from 47 on fully masked
+    (1, 100, 63, 2, 16, False, 0), (1, 100, 65, 2, 32, False, 0), (2, 64, 64, 3, 16, True, 0),
+    (1, 200, 200, 2, 32, True, 65), (1, 192, 40, 2, 16, False, 8),
 ]
 
 
 def _route(dtype, D):
     """The route a new contiguous operand of this dtype and head dim takes:
-    sm90 in bf16 at D 64/80/128/256, sm90_tf32 in float32 at D 64/80/128,
+    sm90 in bf16 at every head dim, sm90_tf32 in float32 at D 64/80/128,
     else tf32."""
     if D not in flash_attention.WGMMA_HEAD_DIMS[dtype]:
         return "tf32"
@@ -306,8 +311,8 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, Sq, Sk, H, D, causal, window = case
     q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), dtype, 20, cuda)
-    # contiguous new tensors: bf16 at D 64/80/128/256 takes sm90, float32 at
-    # D 64/80/128 sm90_tf32, the rest tf32
+    # contiguous new tensors: bf16 takes sm90, float32 at D 64/80/128
+    # sm90_tf32, the rest tf32
     route = _route(dtype, D)
     assert flash_attention.route(q, k, v) == route
     before = _build.launch_counts()["flash_attention"]
@@ -417,7 +422,7 @@ def test_flash_attention_tf32_reads_any_alignment(cuda, dtype, offset, monkeypat
 
 
 def test_flash_attention_route_rules_by_head_dim(cuda):
-    """bf16 at D 64, 80, 128 and 256 takes sm90, float32 at D 64, 80 and 128
+    """bf16 at every head dim takes sm90, float32 at D 64, 80 and 128
     sm90_tf32; the other calls take tf32; each launches and matches the plain version."""
     for D in flash_attention.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
@@ -465,9 +470,9 @@ def test_serve_engine_on_card(cuda):
     ids = [batcher.submit(p[: 10 + 7 * i]) for i, p in enumerate(prompts)]
     assert sorted(batcher.run_once()) == ids
     assert _build.launch_counts()["flash_attention"] == cfg.n_layers
-    # the smoke config's head dim is 16: every call takes the tf32 kernel
+    # the smoke config's head dim is 16: every bf16 call takes the sm90 kernel
     assert cfg.hd == 16
-    assert flash_attention.route_launches() == {"sm90": 0, "sm90_tf32": 0, "tf32": cfg.n_layers}
+    assert flash_attention.route_launches() == {"sm90": cfg.n_layers, "sm90_tf32": 0, "tf32": 0}
     for rid in ids:
         out = batcher.result(rid)
         assert out.shape == (5,) and ((0 <= out) & (out < cfg.vocab)).all()

@@ -1,8 +1,8 @@
 """The tensor-core rate that ``wgmma`` reaches on this card in each form the
 two Hopper flash kernels issue. The sm90 kernel (bf16): S = Q K^T as
 m64n64k16 and m64n128k16 with both operands in shared memory, O += P V as
-m64n64k16, m64n80k16 and m64n128k16 with P in registers and V read through
-the transpose bit. The sm90_tf32 kernel (float32 on TF32 operands): S = Q K^T
+m64n16k16, m64n32k16, m64n64k16, m64n80k16 and m64n128k16 with P in
+registers and V read through the transpose bit. The sm90_tf32 kernel (float32 on TF32 operands): S = Q K^T
 as m64n32k8, m64n64k8, m64n80k8 and m64n128k8 with both operands in shared
 memory, P V as m64n64k8, m64n80k8 and m64n128k8 with P in registers and V^T
 K-major in shared memory (TF32 has no transpose bit). Each warpgroup issues
@@ -42,7 +42,8 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
 
 // FORM: 0 ss m64n64k16, 1 ss m64n128k16, 2 rs m64n64k16 tnspB, 3 rs m64n80k16 tnspB,
 // 4 rs m64n128k16 tnspB (bf16); 5-8 ss m64n32k8, m64n64k8, m64n80k8, m64n128k8 and 9-11 rs
-// m64n64k8, m64n80k8, m64n128k8 (tf32, both operands K-major)
+// m64n64k8, m64n80k8, m64n128k8 (tf32, both operands K-major); 12-13 rs m64n16k16 and
+// m64n32k16 tnspB (bf16)
 template <int FORM>
 __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t da, uint64_t db) {
   if constexpr (FORM == 0) {
@@ -72,6 +73,14 @@ __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint
                  "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}"
                  : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+  } else if constexpr (FORM == 12) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+                 "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}"
+                 : ACC8(d, 0) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+  } else if constexpr (FORM == 13) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
+                 "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}"
+                 : ACC8(d, 0), ACC8(d, 8) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
   }@TF32_FORMS@ else {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, "
                  "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
@@ -86,10 +95,11 @@ __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint
 
 // the form's N and K, and its instructions a group (8 for Q.K^T, 4 for P.V)
 __host__ __device__ constexpr int n_of(int form) {
-  return form < 5 ? (form == 1 || form == 4 ? 128 : form == 3 ? 80 : 64)
-                  : (form == 5 ? 32 : form == 6 || form == 9 ? 64 : form == 7 || form == 10 ? 80 : 128);
+  return form >= 12 ? 16 * (form - 11)
+         : form < 5 ? (form == 1 || form == 4 ? 128 : form == 3 ? 80 : 64)
+                    : (form == 5 ? 32 : form == 6 || form == 9 ? 64 : form == 7 || form == 10 ? 80 : 128);
 }
-__host__ __device__ constexpr int k_of(int form) { return form < 5 ? 16 : 8; }
+__host__ __device__ constexpr int k_of(int form) { return form < 5 || form >= 12 ? 16 : 8; }
 __host__ __device__ constexpr bool ss(int form) { return form < 2 || (form >= 5 && form <= 8); }
 __host__ __device__ constexpr int group_of(int form) { return ss(form) ? 8 : 4; }
 constexpr int kSmem = 64 * 1024;
@@ -105,7 +115,7 @@ __global__ void __launch_bounds__(256, 1) bench(float* out, int iters) {
 #pragma unroll
     for (int g = 0; g < group_of(FORM); ++g) {
       const uint64_t da = desc(base + (g % 4) * 32, 16, 1024);
-      const uint64_t db = FORM < 2 || FORM >= 5 ? desc(base + 16384 + (g % 4) * 32, 16, 1024)
+      const uint64_t db = FORM < 2 || (FORM >= 5 && FORM < 12) ? desc(base + 16384 + (g % 4) * 32, 16, 1024)
                                                 : desc(base + 16384 + g * 2048, 8192, 1024);
       mma<FORM>(d, a, da, db);
     }
@@ -155,6 +165,8 @@ int main() {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
   row<0>("ss m64n64k16 (Q.K^T, 64 keys)", sms);
   row<1>("ss m64n128k16 (Q.K^T, 128 keys)", sms);
+  row<12>("rs m64n16k16 tnspB (P.V, D 16)", sms);
+  row<13>("rs m64n32k16 tnspB (P.V, D 32)", sms);
   row<2>("rs m64n64k16 tnspB (P.V, D 64)", sms);
   row<3>("rs m64n80k16 tnspB (P.V, D 80)", sms);
   row<4>("rs m64n128k16 tnspB (P.V, D 128)", sms);
