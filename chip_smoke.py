@@ -11,10 +11,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``flash_attention_tf32.cu`` with nvcc (with ``-Xptxas -v``), one process
    per source, in parallel; print each flash kernel's registers and spills
    and the count of its tensor-core instructions in its SASS (``cuobjdump
-   -sass``): ``HGMMA`` (wgmma), which every sm90 instance (D 64, 80, 128,
-   256) and sm90_tf32 instance (D 64, 80, 128) must hold with no spilled
-   byte and no wgmma that ptxas serialised, and ``HMMA`` (mma.sync), which
-   every tf32 instance (each head dim in float32 and bf16) must hold;
+   -sass``): ``HGMMA`` (wgmma), which every sm90 instance (D 16, 32, 64,
+   80, 128, 256) and sm90_tf32 instance (D 64, 80, 128, 256) must hold with
+   no spilled byte and no wgmma that ptxas serialised, and ``HMMA``
+   (mma.sync), which every tf32 instance (each head dim in float32 and bf16)
+   must hold; and each sm90_tf32 instance's shared memory (at D 256 a
+   cluster of two blocks);
 3. kernels: each of the six storage kernels against its plain PyTorch version
    on the card, byte for byte (bit counts exactly), at word widths 1/2/4/8 and
    awkward lengths (the word XOR also on operands off a 16-byte boundary and at
@@ -203,8 +205,10 @@ tiles and 128-row blocks (at D 16, 32 and 256 too), strided (fused-projection)
 and misaligned operands (float32 and bf16 slices 2-8 bytes off a 16-byte
 boundary) and heads broadcast with stride 0, asserting the route of each call
 (bf16 with TMA-addressable operands takes ``sm90`` at every head dim, float32
-at D 64, 80 and 128 with such operands ``sm90_tf32``, every other call
-``tf32``). It times
+at D 64, 80, 128 and 256 with such operands ``sm90_tf32``, every other call
+``tf32``); ``tf32``'s instances for bf16 at D 16 and 32 and float32 at D 256,
+whose aligned calls take a wgmma route, are also launched directly at every
+case of their head dim. It times
 each ``sm90`` instance at its path's shape: D 128 at the shapes phase 7's
 prefills give the kernel (B 4, S 2032 and 512, H 28, causal), D 80 at zamba2-2.7b's (4, 1024, 32, causal), D 64 at whisper-medium's
 encoder (4, 1500, 16, bidirectional); D 128 also at a 32k-token prompt (B 1,
@@ -212,8 +216,9 @@ S 32768, H 28, causal), its rows 0-2047 held to the plain version on the
 first 2048 keys (exact by causality) and every row to SDPA's output; in bf16
 at D 256, 16 and 32 (B 4, S 2048, H 16, causal) ``sm90`` and ``tf32``, and on
 float32 inputs, at phase 7's, zamba2-2.7b's and whisper-medium's encoder
-shapes, ``sm90_tf32`` and ``tf32``, each launched directly, in turns;
-``tf32`` alone at B 4, S 2048, H 16, causal in float32 at D 256, 16 and 32;
+shapes and at D 256 (B 4, S 2048, H 16, causal), ``sm90_tf32`` and
+``tf32``, each launched directly, in turns; ``tf32`` alone at B 4, S 2048, H
+16, causal in float32 at D 16 and 32;
 each beside its bound (the largest of the products at the dtype's
 tensor-core rate, one exp2 a pair at 16 a cycle per SM, and the bytes;
 float32 with the three passes' ceiling where wgmma is paired with it), the
@@ -246,6 +251,7 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 import concurrent.futures  # noqa: E402
+import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
 import hashlib  # noqa: E402
 import http.client  # noqa: E402
@@ -590,9 +596,12 @@ FLASH_TIMED_F32 = {"phase 7": (4, 2032, 28, 128, True), "zamba2": (4, 1024, 32, 
 # bf16 at head dims 256, 16 and 32, which no path gives: sm90 and the tf32
 # route's one pass, in turns
 FLASH_TIMED_BF16 = {D: (4, 2048, 16, D, True) for D in (256, 16, 32)}
+# float32 at head dim 256, which no path gives: sm90_tf32 (a cluster of two
+# blocks) and the tf32 route's three passes, in turns
+FLASH_TIMED_F32_D256 = (4, 2048, 16, 256, True)
 # the tf32 route's instances that no path and no timing above takes, each at
 # B 4, S 2048, H 16, causal: (dtype, head dim)
-FLASH_TIMED_TF32 = ((torch.float32, 256), (torch.float32, 16), (torch.float32, 32))
+FLASH_TIMED_TF32 = ((torch.float32, 16), (torch.float32, 32))
 FLASH_TIMED_TF32_SHAPE = (4, 2048, 16, True)  # B, S, H, causal
 # the other sm90 instances at their paths' shapes (B, S, H, D, causal):
 # zamba2-2.7b's shared attention (phase 9b) and whisper-medium's encoder (9a)
@@ -602,6 +611,10 @@ FLASH_TIMED_SM90 = {80: (4, 1024, 32, 80, True), 64: (4, 1500, 16, 64, False)}
 # FLASH_LONG_CHECKED are held to it on that many keys, every row to SDPA
 FLASH_LONG = (1, 32768, 28, 128, True)
 FLASH_LONG_CHECKED = 2048
+# the tf32 route's instances whose aligned calls all take a wgmma route,
+# launched directly at each FLASH_CASES case of their head dim so that they
+# stay held to the plain version for the calls TMA cannot address: (dtype, D)
+FLASH_TF32_DIRECT = ((torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float32, 256))
 # operand offsets (in elements from a 16-byte boundary) of the misaligned
 # slices the tf32 route reads: its copies are 16, 8, 4 or 2 bytes wide
 FLASH_OFFSETS = ((torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 1),
@@ -776,10 +789,12 @@ def time_flash_long(gen: torch.Generator) -> dict:
 def phase_flash(gen: torch.Generator) -> dict:
     """The flash kernels against their plain version; their times at the
     serving path's shapes. Returns sm90's report entry (phase 7's bf16 S 2032
-    shape) and, under "sm90_80", "sm90_64", "sm90_long", "f32", "bf16" and
-    "tf32_only", the other sm90 instances, the 32k row, the float32 timings
-    of sm90_tf32 and tf32, the bf16 timings of sm90 and tf32 in turns at D
-    256, 16 and 32 (by head dim), and the tf32 instances timed alone."""
+    shape) and, under "sm90_80", "sm90_64", "sm90_long", "f32", "bf16",
+    "f32_256" and "tf32_only", the other sm90 instances, the 32k row, the
+    float32 timings of sm90_tf32 and tf32 at the paths' shapes, the bf16
+    timings of sm90 and tf32 in turns at D 256, 16 and 32 (by head dim), the
+    float32 timing of sm90_tf32 and tf32 in turns at D 256, and the tf32
+    instances timed alone."""
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     bf16 = torch.bfloat16
     fa.reset_route_launches()
@@ -792,14 +807,16 @@ def phase_flash(gen: torch.Generator) -> dict:
             key = (str(dt).split(".")[-1], flash_route(dt, D))
             worst[key] = max(worst.get(key, 0.0),
                              flash_checked(q, k, v, causal, window, route=key[1])[1])
-            if dt == bf16 and D in (16, 32):
-                # the tf32 route's bf16 instances here keep the calls TMA
-                # cannot address (below): launched directly at these cases
+            if (dt, D) in FLASH_TF32_DIRECT:
+                # the tf32 route's instance here keeps the calls TMA cannot
+                # address (below): launched directly at these cases
                 got = fa._launch("tf32", q, k, v, causal, window)
-                worst[("bfloat16", "tf32")] = max(worst.get(("bfloat16", "tf32"), 0.0),
-                                                  held_to_plain(got, q, k, v, causal, window))
+                worst[(key[0], "tf32")] = max(worst.get((key[0], "tf32"), 0.0),
+                                              held_to_plain(got, q, k, v, causal, window))
     if flash_route(bf16, 256) != "sm90" or worst.get(("bfloat16", "sm90")) is None:
         raise AssertionError("bf16 at D 256 does not take the sm90 route")
+    if flash_route(torch.float32, 256) != "sm90_tf32":
+        raise AssertionError("float32 at D 256 does not take the sm90_tf32 route")
     for D in fa.WGMMA_HEAD_DIMS[bf16]:
         # slices of one fused (B, S, 3H, D) projection, read in place by TMA;
         # a slice 2 bytes off a 16-byte boundary, which no tensor map addresses
@@ -876,6 +893,10 @@ def phase_flash(gen: torch.Generator) -> dict:
     f32 = {label: time_flash_pair(label, *shape, gen)
            for label, shape in FLASH_TIMED_F32.items()}
     reports["f32"], reports["bf16"] = f32, pairs
+    # float32 at D 256: sm90_tf32's cluster and tf32, in turns
+    f32_256 = reports["f32_256"] = time_flash_pair("D 256", *FLASH_TIMED_F32_D256, gen)
+    if f32_256["route"] != "sm90_tf32":
+        raise AssertionError(f"float32 at {FLASH_TIMED_F32_D256} takes {f32_256['route']}")
     if any(flash_route(dt, D) != "tf32" for dt, D in FLASH_TIMED_TF32):
         raise AssertionError(f"a call of {FLASH_TIMED_TF32} leaves the tf32 route")
     B, S, H, causal = FLASH_TIMED_TF32_SHAPE
@@ -915,7 +936,8 @@ def flash_build_report() -> dict:
     """Per flash kernel instance: registers, spilled bytes and whether ptxas
     serialised its wgmma (from the build's ``-Xptxas -v``) and its tensor-core
     instructions in its SASS (``cuobjdump -sass``): HGMMA (wgmma) and HMMA
-    (mma.sync). Raises if an sm90 or sm90_tf32 instance (one per head dim of
+    (mma.sync); each sm90_tf32 instance's dynamic shared memory and blocks a
+    cluster. Raises if an sm90 or sm90_tf32 instance (one per head dim of
     the kernel) is missing, holds no HGMMA, spills or had its wgmma
     serialised, or a tf32 instance (one per head dim and dtype) is missing or
     holds no HMMA."""
@@ -955,6 +977,16 @@ def flash_build_report() -> dict:
                 info[name]["hgmma"] += 1
             elif name and "HMMA" in line:
                 info[name]["hmma"] += 1
+    # each sm90_tf32 instance's shared memory as its launcher asks for it
+    layout = _build.library().zllm_flash_attention_sm90_tf32_layout
+    layout.argtypes = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    layout.restype = ctypes.c_int
+    for D in fa.WGMMA_HEAD_DIMS[torch.float32]:
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        if layout(D, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
+            raise AssertionError(f"flash_fwd_sm90_tf32_kernel<{D}> has no layout")
+        info.setdefault(f"flash_fwd_sm90_tf32_kernel<{D}>", dict(blank)).update(
+            smem_bytes=smem.value, cluster_blocks=blocks.value)
     for name, r in sorted(info.items()):
         regs = ("not captured (the library was built by an earlier process)"
                 if r["registers"] is None else
@@ -963,7 +995,10 @@ def flash_build_report() -> dict:
                 + ("; ptxas serialised its wgmma" if r["wgmma_serialized"] else ""))
         mma = ("not available (no cuobjdump)" if r["hgmma"] is None else
                f"HGMMA {r['hgmma']}, HMMA {r['hmma']}")
-        log(f"build: {name}: {regs}; tensor-core instructions in its SASS: {mma}")
+        smem = ("" if "smem_bytes" not in r else
+                f"; dynamic shared memory {r['smem_bytes']} bytes a block, {r['cluster_blocks']} "
+                f"block(s) a cluster: {r['smem_bytes'] * r['cluster_blocks']} bytes a cluster")
+        log(f"build: {name}: {regs}; tensor-core instructions in its SASS: {mma}{smem}")
     wgmma_instances = ([f"flash_fwd_sm90_kernel<{D}>" for D in fa.WGMMA_HEAD_DIMS[torch.bfloat16]]
                        + [f"flash_fwd_sm90_tf32_kernel<{D}>"
                           for D in fa.WGMMA_HEAD_DIMS[torch.float32]])
@@ -3442,7 +3477,6 @@ def later_phases_main(result_path: str, parent_pid: str, smi: str) -> int:
     that :class:`LaterPhases` starts; their results are pickled to
     ``result_path``. SIGTERM, sent by the parent on its way out or by the
     kernel when the parent dies, ends the dry runs and the CLI runs first."""
-    import ctypes
 
     signal.signal(signal.SIGTERM, _exit_on_sigterm)
     ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG
@@ -3619,10 +3653,10 @@ def main() -> int:
     # path's shape, launches and build report (sm90: D 128 phase 7, D 80 9b,
     # D 64 9a, each timed in phase 3, D 256, 16 and 32 timed only there, and
     # D 128 at a 32k-token prompt; sm90_tf32: float32 D 128 phase 7, D 80 9b,
-    # D 64 9a; tf32, which no path of the smoke takes: the same float32
-    # shapes, each timed in phase 3 beside sm90_tf32, bf16 D 80 at 9b's
-    # shape, bf16 D 256, 16 and 32 beside sm90, and float32 D 256, 16 and 32
-    # alone)
+    # D 64 9a, D 256 timed only in phase 3; tf32, which no path of the smoke
+    # takes: the same float32 shapes, each timed in phase 3 beside sm90_tf32,
+    # bf16 D 80 at 9b's shape, bf16 D 256, 16 and 32 beside sm90, and float32
+    # D 16 and 32 alone)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     timed = families["timed"]
     mf = mesh_families["launches"]
@@ -3637,6 +3671,7 @@ def main() -> int:
                        "phases 9a and 12a (whisper-medium, unsharded and on a (1, 1) mesh)")}
     long = flash_reports["sm90_long"]
     bf16_pairs, tf32_only = flash_reports["bf16"], flash_reports["tf32_only"]
+    f32_256 = flash_reports["f32_256"]  # float32 D 256: sm90_tf32 and tf32 in turns
     w32, z32 = (families[n]["float32_flash"] for n in ("whisper", "zamba2"))
     # the float32 prefills, each on sm90_tf32 (checked below): (phase 3's
     # timing at the path's shape, the path's run)
@@ -3686,18 +3721,24 @@ def main() -> int:
                       "launched_by": "the float32 models' prefills through attn=flash: "
                                      + ", ".join(by for _, _, by in f32_paths.values()),
                       "instance": "flash_fwd_sm90_tf32_kernel<128>",
-                      "instances": {f"flash_fwd_sm90_tf32_kernel<{D}>": {
-                          **f32_numbers(r, "sm90_tf32"), "launches": run["launches"],
-                          "launched_by": by,
-                          **build_info.get(f"flash_fwd_sm90_tf32_kernel<{D}>", {})}
-                          for D, (r, run, by) in f32_paths.items()},
+                      "instances": {
+                          **{f"flash_fwd_sm90_tf32_kernel<{D}>": {
+                              **f32_numbers(r, "sm90_tf32"), "launches": run["launches"],
+                              "launched_by": by,
+                              **build_info.get(f"flash_fwd_sm90_tf32_kernel<{D}>", {})}
+                             for D, (r, run, by) in f32_paths.items()},
+                          "flash_fwd_sm90_tf32_kernel<256>": {
+                              **f32_numbers(f32_256, "sm90_tf32"), "launches": 0,
+                              "launched_by": "phase 3 only: no config has head dim 256",
+                              **build_info.get("flash_fwd_sm90_tf32_kernel<256>", {})}},
                       "err": max(worst.get("float32 sm90_tf32", 0.0),
                                  *(r["sm90_tf32"]["max_abs_err"] for r in f32.values()),
+                                 f32_256["sm90_tf32"]["max_abs_err"],
                                  *(run["flash_err"] for _, run, _ in f32_paths.values()))},
         "tf32": {"main": f32_numbers(f32["phase 7"], "tf32"),
                  "launches": 0,
                  "launched_by": "phase 3 only: no path of the smoke routes a call to it (it takes "
-                                "float32 at D 16, 32 and 256 and operands TMA cannot address)",
+                                "float32 at D 16 and 32 and operands TMA cannot address)",
                  "rerouted_launches": rerouted,
                  "rerouted_by": "phase 9b's warm prefills with zamba2-2.7b's bf16 flash calls "
                                 "sent to it, in turns with sm90, off the path",
@@ -3719,6 +3760,10 @@ def main() -> int:
                          "launched_by": f"phase 3 only: bf16 at D {D} takes sm90",
                          **build_info.get(tf32_instance(torch.bfloat16, D), {})}
                         for D, r in bf16_pairs.items()},
+                     tf32_instance(torch.float32, 256): {
+                         **f32_numbers(f32_256, "tf32"), "launches": 0,
+                         "launched_by": "phase 3 only: float32 at D 256 takes sm90_tf32",
+                         **build_info.get(tf32_instance(torch.float32, 256), {})},
                      **{name: {**{k: r[k] for k in keys}, "max_abs_err": r["max_abs_err"],
                                "library_backend": r["library_backend"], "launches": 0,
                                "launched_by": "phase 3 only: no path gives this head dim",
@@ -3728,6 +3773,7 @@ def main() -> int:
                             timed["tf32_zamba2"]["max_abs_err"],
                             *(r["tf32"]["max_abs_err"] for r in f32.values()),
                             *(r["tf32"]["max_abs_err"] for r in bf16_pairs.values()),
+                            f32_256["tf32"]["max_abs_err"],
                             *(r["max_abs_err"] for r in tf32_only.values()))},
     }
     for route, row in rows.items():

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) flash-attention forward pass on the tensor cores for every
 // call the sm90 and sm90_tf32 routes do not take: float32 q, k and v at head
-// dims 16, 32 and 256 (bf16 at every head dim takes sm90), or operands of
+// dims 16 and 32 (bf16 at every head dim takes sm90, float32 at 64, 80, 128
+// and 256 sm90_tf32), or operands of
 // either dtype a TMA tensor map cannot address (a base pointer off a 16-byte
 // boundary, an odd S stride, heads broadcast with stride 0). Replaces
 // src/repro/kernels/flash_attention.py::flash_attention (the Pallas TPU

@@ -32,17 +32,28 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
-// Wait until the barrier's phase with this parity has completed.
+// Wait until the barrier's phase with this parity has completed; kCluster
+// acquires at cluster scope (for what another block of the cluster wrote).
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint64_t t0 = 0;
   while (true) {
     uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
+    if constexpr (kCluster) {
+      asm volatile(
+          "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    }
     if (done) return;
     uint64_t now;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));

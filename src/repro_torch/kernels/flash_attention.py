@@ -6,13 +6,14 @@ CUDA kernels, picked by :func:`route`. Operands whose base pointers and B/S/H
 strides TMA can address (multiples of 16 bytes) take ``"sm90"`` in bf16 at
 every head dim, 16, 32, 64, 80, 128 or 256 (``csrc/flash_attention_sm90.cu``:
 bf16 tiles on the tensor cores through ``wgmma``, loaded by TMA), and
-``"sm90_tf32"`` in float32 at head dim 64, 80 or 128
+``"sm90_tf32"`` in float32 at head dim 64, 80, 128 or 256
 (``csrc/flash_attention_sm90_tf32.cu``: ``wgmma`` on TF32 operands, three
-passes of a hi/lo split, each tile split once a block); :data:`WGMMA_HEAD_DIMS`
-holds those head dims by dtype. Every other call takes ``"tf32"``
-(``csrc/flash_attention_tf32.cu``: ``mma.sync`` on TF32 operands, three passes
-for float32, one exact pass for bf16): float32 at head dims 16, 32 and 256,
-and operands TMA cannot address. All take the reference's layout, q (B, Sq,
+passes of a hi/lo split, each tile split once a block; at 256 two blocks of a
+cluster, each owning half of D, add their partial scores);
+:data:`WGMMA_HEAD_DIMS` holds those head dims by dtype. Every other call takes
+``"tf32"`` (``csrc/flash_attention_tf32.cu``: ``mma.sync`` on TF32 operands,
+three passes for float32, one exact pass for bf16): float32 at head dims 16
+and 32, and operands TMA cannot address. All take the reference's layout, q (B, Sq,
 H, D) and k, v (B, Sk, H, D) with grouped-query heads already expanded, in
 float32 or bfloat16, and read the operands in place through their strides
 (the last dim must be contiguous): no ``(B*H, S, D)`` transposes, no
@@ -35,7 +36,7 @@ __all__ = ["flash_attention", "route", "route_launches", "reset_route_launches",
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the head dims the kernels are built for
 # the head dims of the wgmma routes by dtype: sm90 (bf16) and sm90_tf32 (float32)
-WGMMA_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 80, 128, 256), torch.float32: (64, 80, 128)}
+WGMMA_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 80, 128, 256), torch.float32: (64, 80, 128, 256)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535  # heads and batch ride the grid's y and z dims
 _TMA_ALIGN = 16         # bytes: a tensor map's base address and strides are multiples of it
@@ -79,7 +80,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel a call takes: ``"sm90"`` for bf16 at any head dim of
-    :data:`HEAD_DIMS` and ``"sm90_tf32"`` for float32 at 64, 80 or 128, when q, k and v share
+    :data:`HEAD_DIMS` and ``"sm90_tf32"`` for float32 at 64, 80, 128 or 256, when q, k and v share
     the dtype, D is contiguous, and every base pointer and every B/S/H byte stride is a
     positive multiple of 16 below 2^40 (what a TMA tensor map can address; a
     dim of extent 1 is never stepped, so its stride is free); ``"tf32"``

@@ -207,9 +207,10 @@ def test_route_takes_sm90_for_aligned_bf16(D):
 
 
 # (dtype, D) of aligned contiguous operands at the head dims no wgmma route
-# of their dtype has: float32 at D 16, 32 and 256 (bf16 at every head dim
-# takes sm90: test_route_takes_sm90_for_aligned_bf16)
-OTHER_HEAD_DIMS = [(torch.float32, 16), (torch.float32, 32), (torch.float32, 256)]
+# of their dtype has: float32 at D 16 and 32 (bf16 at every head dim takes
+# sm90: test_route_takes_sm90_for_aligned_bf16; float32 at D 256 sm90_tf32:
+# test_route_takes_tf32_for_float32)
+OTHER_HEAD_DIMS = [(torch.float32, 16), (torch.float32, 32)]
 
 
 @pytest.mark.parametrize("dtype,D", OTHER_HEAD_DIMS,

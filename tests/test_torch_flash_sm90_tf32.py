@@ -6,7 +6,7 @@ JAX package's ``repro.kernels.ref.mha_reference``.
 The kernel itself runs only on the card (``tests/test_torch_gpu.py`` and
 ``chip_smoke.py``'s phase 3). What the emulation repeats, step by step: q
 blocks of 64 rows, each over the KV tiles up to its last row's diagonal, 64
-keys a tile at D 64 and 32 at D 80 and 128; every operand split once into hi
+keys a tile at D 64 and 32 at D 80, 128 and 256; every operand split once into hi
 and lo: q and k as loaded are their own hi operands, which the tensor cores
 truncate to TF32 (their top 19 bits), and lo = x - trunc(x) rounded to TF32
 (to nearest, ties away: the kernel adds half a TF32 ulp and the tensor cores
@@ -15,7 +15,9 @@ to TF32 and lo = x - hi rounded the same way; each product in three
 passes into one accumulator, small passes first (a_lo.b_hi over every 8-deep
 k-step, then a_hi.b_lo, then a_hi.b_hi), each k-step's 8 products added to
 the accumulator and the sum truncated to float32 (rounded toward zero, the
-tensor cores' float32 sums); the scale with log2(e) folded in, applied to the
+tensor cores' float32 sums); at D 256 the scores summed so over each half of
+the contraction (columns 0-127 and 128-255, one block of a cluster each) and
+the two partials added in float32, rounded to nearest; the scale with log2(e) folded in, applied to the
 float32 scores on tiles that can hold a masked key, then the mask (-1e30 for
 keys the causal mask or the window removes, -inf past Sk), and fused into the
 exponent's argument (one rounding, as the kernel's FFMA) on the others; the
@@ -96,11 +98,28 @@ def product(a: torch.Tensor, b: torch.Tensor, splitter=split) -> torch.Tensor:
     return acc.float()
 
 
+def scores(q: torch.Tensor, kt: torch.Tensor, first: int = 0) -> torch.Tensor:
+    """S = q (..., M, D) @ kt (..., D, N) as the kernel sums it: at D 64, 80
+    and 128 one :func:`product`; at D 256 a product over each half of the
+    contraction (the partial of one block of the cluster each), the two
+    added in float32 (rounded to nearest), half ``first`` on the left (block
+    r adds the other block's partial to its own, r's on the left)."""
+    D = q.shape[-1]
+    if D != 256:
+        return product(q, kt, split_loaded)
+    h = D // 2
+    part = [product(q[..., :h], kt[..., :h, :], split_loaded),
+            product(q[..., h:], kt[..., h:, :], split_loaded)]
+    return part[first] + part[1 - first]
+
+
 def emulate_sm90_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
-                      blocks=None) -> torch.Tensor:
+                      blocks=None, first: int = 0) -> torch.Tensor:
     """The sm90_tf32 kernel's arithmetic on float32 (B, Sq, H, D) q and
     (B, Sk, H, D) k, v, on the CPU; ``blocks`` limits it to those q blocks
-    (their rows are returned, others are zero). Returns (B, Sq, H, D)."""
+    (their rows are returned, others are zero); ``first`` is the half of D
+    whose partial scores stand on the left of the sum at D 256 (0 as block 0
+    adds them, 1 as block 1 does). Returns (B, Sq, H, D)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     BKV = kv_tile(D)
@@ -118,7 +137,7 @@ def emulate_sm90_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal:
             kt, vt = torch.zeros((B, H, BKV, D)), torch.zeros((B, H, BKV, D))
             n = min(BKV, Sk - k0)  # rows past Sk arrive as zeros
             kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], vf[:, :, k0:k0 + n]
-            s = product(qf[:, :, rows], kt.transpose(-1, -2), split_loaded)
+            s = scores(qf[:, :, rows], kt.transpose(-1, -2), first)
             edge = k0 + BKV > Sk or window > 0 or (causal and k0 + BKV - 1 > q0)
             if edge:
                 s = s * scale_log2
@@ -157,7 +176,7 @@ def _jax(jq, jk, jv, causal, window):
 
 
 def test_cases_cover_every_head_dim_of_the_kernel():
-    assert {c[4] for c in CASES} == set(fa.WGMMA_HEAD_DIMS[torch.float32]) == {64, 80, 128}
+    assert {c[4] for c in CASES} == set(fa.WGMMA_HEAD_DIMS[torch.float32]) == {64, 80, 128, 256}
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
@@ -178,6 +197,25 @@ def test_emulated_sm90_tf32_long_causal_row_block():
     got = emulate_sm90_tf32(q, k, v, True, 0, blocks=[last])[:, BQ * last:]
     want = _jax(jq, jk, jv, True, 0)[:, BQ * last:]
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def test_d256_halves_add_to_the_same_scores_in_either_order():
+    """At D 256 block 0 adds block 1's partial scores to its own and block 1
+    block 0's to its own: float32 addition commutes, so both hold the same S
+    bit for bit (here over partials of both signs and magnitudes across many
+    binades, where the sum cancels and rounds), and so the same P, l and
+    output, which the emulation shows with either half first."""
+    rng = np.random.default_rng(54)
+    scale = np.exp2(rng.integers(-12, 12, size=(1, 2, 64, 256))).astype(np.float32)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 64, 256)).astype(np.float32) * scale)
+    kt = torch.from_numpy(rng.standard_normal((1, 2, 256, 32)).astype(np.float32))
+    s0, s1 = scores(q, kt, first=0), scores(q, kt, first=1)
+    assert torch.equal(s0.view(torch.int32), s1.view(torch.int32))
+    (q, k, v), _ = _inputs((1, 150, 2, 256), (1, 150, 2, 256), 55)
+    for causal, window in ((True, 0), (False, 40)):
+        a = emulate_sm90_tf32(q, k, v, causal, window, first=0)
+        b = emulate_sm90_tf32(q, k, v, causal, window, first=1)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_emulated_fully_masked_rows_average_v_uniformly():
@@ -221,7 +259,7 @@ def test_route_takes_sm90_tf32_for_aligned_float32(D):
     assert one.stride() == (D + 4, D + 4, D + 4, 1) and fa.route(one, one, one) == "sm90_tf32"
 
 
-@pytest.mark.parametrize("D", [16, 32, 256])
+@pytest.mark.parametrize("D", [16, 32])
 def test_route_takes_tf32_for_float32_at_other_head_dims(D):
     q, k, v = (_f32((1, 40, 2, D), s) for s in range(3))
     assert fa.route(q, k, v) == "tf32"

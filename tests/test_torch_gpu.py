@@ -292,7 +292,7 @@ FLASH_CASES = [
 
 def _route(dtype, D):
     """The route a new contiguous operand of this dtype and head dim takes:
-    sm90 in bf16 at every head dim, sm90_tf32 in float32 at D 64/80/128,
+    sm90 in bf16 at every head dim, sm90_tf32 in float32 at D 64/80/128/256,
     else tf32."""
     if D not in flash_attention.WGMMA_HEAD_DIMS[dtype]:
         return "tf32"
@@ -311,7 +311,7 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, Sq, Sk, H, D, causal, window = case
     q, k, v = _qkv((B, Sq, H, D), (B, Sk, H, D), dtype, 20, cuda)
-    # contiguous new tensors: bf16 takes sm90, float32 at D 64/80/128
+    # contiguous new tensors: bf16 takes sm90, float32 at D 64/80/128/256
     # sm90_tf32, the rest tf32
     route = _route(dtype, D)
     assert flash_attention.route(q, k, v) == route
@@ -348,8 +348,9 @@ def test_flash_attention_reads_strided_operands(cuda, D):
 def test_flash_attention_sm90_tf32_reads_strided_operands(cuda, D, monkeypatch):
     """float32 q, k and v sliced out of one fused (B, S, 3H, D) projection:
     the sm90_tf32 kernel reads them in place through their strides (at D 80 a
-    row is 320 bytes, three TMA boxes, the third partly past D), within the
-    reference's 2e-5."""
+    row is 320 bytes, three TMA boxes, the third partly past D; at D 256 each
+    block of the cluster reads its 128 columns), within the reference's
+    2e-5."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, S, H = 2, 130, 4
     qkv = torch.randn((B, S, 3 * H, D), generator=torch.Generator(device="cuda").manual_seed(23),
@@ -367,8 +368,8 @@ def test_flash_attention_sm90_tf32_reads_strided_operands(cuda, D, monkeypatch):
 @pytest.mark.parametrize("D", flash_attention.WGMMA_HEAD_DIMS[torch.float32])
 def test_flash_attention_sm90_tf32_kernel_at_each_head_dim(cuda, D, monkeypatch):
     """The sm90_tf32 kernel launched directly at each head dim it is built
-    for, at ragged lengths and the edges of its 32- and 64-key tiles, within
-    the reference's 2e-5."""
+    for (D 256 as a cluster of two blocks), at ragged lengths and the edges
+    of its 32- and 64-key tiles, within the reference's 2e-5."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     for B, Sq, Sk, causal, window in ((2, 77, 77, True, 0), (1, 100, 31, False, 0),
                                       (1, 100, 33, False, 0), (1, 129, 129, True, 0),
@@ -382,21 +383,27 @@ def test_flash_attention_sm90_tf32_kernel_at_each_head_dim(cuda, D, monkeypatch)
 
 
 @pytest.mark.parametrize("D", flash_attention.WGMMA_HEAD_DIMS[torch.bfloat16])
-def test_flash_attention_misaligned_slice_takes_tf32(cuda, D):
-    """A bf16 operand 2 bytes off a 16-byte boundary is one no tensor map can
-    address: the call takes the tf32 kernel and is still right."""
+def test_flash_attention_misaligned_slice_takes_tf32(cuda, D, monkeypatch):
+    """A bf16 operand 2 bytes off a 16-byte boundary, or at a float32 wgmma
+    head dim (64, 80, 128, 256) a float32 one 4 bytes off, is one no tensor
+    map can address: the call takes the tf32 kernel and is still right."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, S, H = 2, 130, 4
-    buf = torch.randn((B, S, H, D + 8), generator=torch.Generator(device="cuda").manual_seed(22),
-                      device=cuda).to(torch.bfloat16)
-    q = buf[..., 1:1 + D]
-    k, v = (torch.randn((B, S, H, D), device=cuda).to(torch.bfloat16) for _ in range(2))
-    assert q.data_ptr() % 16 == 2 and flash_attention.route(q, k, v) == "tf32"
-    before = flash_attention.route_launches()
-    got = flash_attention.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    assert flash_attention.route_launches()["tf32"] - before["tf32"] == 1
-    want = ref.mha_reference(q, k, v, causal=True)
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for dtype in (torch.bfloat16, torch.float32):
+        if D not in flash_attention.WGMMA_HEAD_DIMS[dtype]:
+            continue
+        buf = torch.randn((B, S, H, D + 8), generator=g, device=cuda).to(dtype)
+        q = buf[..., 1:1 + D]
+        k, v = (torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype) for _ in range(2))
+        assert q.data_ptr() % 16 == buf.element_size() and flash_attention.route(q, k, v) == "tf32"
+        before = flash_attention.route_launches()
+        got = flash_attention.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert flash_attention.route_launches()["tf32"] - before["tf32"] == 1
+        want = ref.mha_reference(q, k, v, causal=True)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.float32, 2),
@@ -422,7 +429,7 @@ def test_flash_attention_tf32_reads_any_alignment(cuda, dtype, offset, monkeypat
 
 
 def test_flash_attention_route_rules_by_head_dim(cuda):
-    """bf16 at every head dim takes sm90, float32 at D 64, 80 and 128
+    """bf16 at every head dim takes sm90, float32 at D 64, 80, 128 and 256
     sm90_tf32; the other calls take tf32; each launches and matches the plain version."""
     for D in flash_attention.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
